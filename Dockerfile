@@ -1,9 +1,9 @@
 # Reproducible container for bart_tpu (reference parity: the reference
 # ships a Singularity definition building Ubuntu 20.04 + conda + MPICH;
-# see /root/reference Singularity and SURVEY.md section 1 packaging row).
+# see the reference Singularity file and SURVEY.md section 1 packaging row).
 #
-# CPU image by default; on a TPU VM swap the jax pin for
-# `pip install "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html`.
+# CPU image by default; for an NVIDIA GPU install JAX's CUDA build
+# instead: `pip install "jax[cuda12]"`.
 FROM python:3.12-slim
 
 # g++ builds the native HITRAN line scanner (bart_tpu/native/hitran_scan.cpp)
@@ -17,7 +17,7 @@ COPY bart_tpu ./bart_tpu
 COPY tests ./tests
 COPY examples ./examples
 
-RUN pip install --no-cache-dir -e ".[test]"
+RUN pip install --no-cache-dir -e ".[test,plots]"
 
 # Smoke: full test pyramid on an 8-virtual-device CPU mesh.
 # (Run `docker build --build-arg RUN_TESTS=1 .` to gate the image on green.)

@@ -1,6 +1,6 @@
-"""bart_tpu — TPU-native Bayesian Atmospheric Radiative Transfer.
+"""bart_tpu — Bayesian Atmospheric Radiative Transfer in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA/Pallas framework, run on the GPU, with the capabilities of the
 reference exosports/BART pipeline (Bayesian exoplanet-atmosphere
 retrieval): line-by-line radiative transfer, DEMC/snooker MCMC with all
 chains vmapped on-device, and wavenumber-sharded multi-chip execution.

@@ -23,7 +23,7 @@ __all__ = ["main"]
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="bart_tpu",
-        description="TPU-native Bayesian Atmospheric Radiative Transfer",
+        description="Bayesian Atmospheric Radiative Transfer",
     )
     parser.add_argument("-c", "--config_file", metavar="FILE",
                         help="INI configuration file ([MCMC] section)")
@@ -59,6 +59,9 @@ def main(argv=None) -> int:
                 overrides[key] = "True"
 
     cfg = load_config(args.config_file, overrides)
+    from bart_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.validate:
         import os
 

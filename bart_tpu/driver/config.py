@@ -68,7 +68,12 @@ class RetrievalConfig:
     press_file: str | None = None
 
     # --- elemental abundances (BART.py:108-121) ---
-    abun_basic: str = "/root/reference/inputs/abundances_Asplund2009.txt"
+    # default: the in-repo Asplund et al. 2009 subset written by
+    # examples/make_demo_inputs.py (the elements the demo uses)
+    abun_basic: str = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))),
+        "examples", "demo_inputs", "abundances_Asplund2009.txt")
     abun_file: str | None = None
     solar_times: float = 1.0
     COswap: bool = False
@@ -154,8 +159,8 @@ class RetrievalConfig:
     # the reference tabulates Voigt profiles on its wnosamp-fine grid
     # but still point-samples tau/flux at the output spacing.
     rtosamp: int = 1
-    # Fold the rtosamp fine grid into the fused RT kernels (the fine
-    # points live only in VMEM; outputs, band matrix, and Planck run
+    # Fold the rtosamp fine grid into a sub-sample axis of the table
+    # (rt.fused: outputs, band matrix, and Planck run
     # at the wndelt bins — same unbiased average-after-exp result,
     # K-times smaller tables of the plain mode avoided): default on.
     # rtfold=False recovers the plain everything-on-the-fine-grid mode.
@@ -166,14 +171,13 @@ class RetrievalConfig:
     # (error bound 0.27 delta^2 ~ 1e-4).  Turn off for wn-sharded
     # multi-chip runs (the split permutes the wn axis).
     rtadapt: bool = True
-    # Store the K-times-fine folded tables in bfloat16: the folded
-    # fills run at Precision.DEFAULT (which rounds f32 operands to
-    # bf16 per dot anyway), so this is numerically near-equivalent on
-    # TPU while HALVING the fine table's HBM residency, host->device
-    # upload, and stream bytes — the production knob for large fold
-    # tables (a 4-molecule WASP K=32 table is 3.6 GB in f32).
-    # Off by default: the reference-parity and CPU test paths keep
-    # full-f32 tables.
+    # Store the K-times-fine folded tables in bfloat16: HALVES the fine
+    # table's device residency and host->device upload (a 4-molecule
+    # WASP K=32 table is 3.6 GB in f32); each sub-sample slice is
+    # widened to f32 before its HIGHEST-precision contraction, so the
+    # only error is the bf16 rounding of the table (band fluxes within
+    # 2e-3, tests/test_fused.py).  Off by default: the reference-parity
+    # and CPU test paths keep full-f32 tables.
     foldtable16: bool = False
     # sigma-bin-averaged cross-sections (arctan-quadrature points per
     # bin); biased for saturated lines — see docs/LINE_SAMPLING.md

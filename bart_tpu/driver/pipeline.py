@@ -99,7 +99,7 @@ class Pipeline:
         wn = cfg.wavenumber_grid()
         # folded rtosamp: the opacity table lives on the K-times-finer
         # midpoint grid; outputs/bands stay on `wn` (rt.fused folded
-        # kernels do the in-VMEM bin averaging)
+        # forms do the bin averaging)
         if cfg.fold_K > 1:
             from bart_tpu.utils.grids import folded_fine_grid
 

@@ -1,7 +1,7 @@
 """Retrieval orchestration: blocks of on-device MCMC + host-side control.
 
 Equivalent of MC3's mccubed.py driver (reference: SURVEY.md sections
-2.3/3.2) with the TPU-native execution model: the chain ensemble
+2.3/3.2) with an accelerator execution model: the chain ensemble
 advances in jitted blocks (one device call per ``block`` iterations);
 between blocks the host runs the Gelman-Rubin test (grtest/grexit),
 accumulates the posterior, streams savemodel outputs, and writes
@@ -320,8 +320,8 @@ def run_mcmc(
             )
             # Early exit gates on the rank-normalized split-R-hat, the
             # strictly stronger statistic: plain GR can read converged
-            # on heavy-tailed/plateau posteriors (this problem's shape —
-            # see docs/PERFORMANCE.md reflection discussion) while the
+            # on heavy-tailed/plateau posteriors (the demo problem's
+            # CH4 marginal is plateau-dominated at demo S/N) while the
             # split/rank form still detects within-chain drift and
             # tail mis-mixing.
             if grexit and np.all(psrf_rank < grbreak):

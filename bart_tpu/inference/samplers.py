@@ -1,6 +1,6 @@
 """MCMC walkers: snooker / DEMC / MRW / uniform sweep, fully on-device.
 
-TPU-native inversion of MC3's process model (reference: SURVEY.md
+Accelerator-side inversion of MC3's process model (reference: SURVEY.md
 sections 2.3/3.2): where the reference runs one MPI process per chain
 with a scatter/gather per iteration, bart_tpu advances the entire
 chain ensemble inside a single jitted ``lax.scan`` — zero host
@@ -143,7 +143,8 @@ class EnsembleSampler:
         # of the vmapped forward keeps every intermediate alive at once
         # (for a folded K=32 production table the dispatch-layer
         # transpose+pad transients alone are ~2x the 3.6 GB table —
-        # a measured HBM exhaustion before the retrieval even started),
+        # a measured device-memory exhaustion before the retrieval
+        # even started),
         # while under jit XLA plans and reuses that memory.
         if self._eval_jit is None:
             self._eval_jit = jax.jit(self._eval)

@@ -1,6 +1,6 @@
 """HITRAN/HITEMP ``.par`` line-list parser.
 
-TPU-era replacement for the reference's pylineread HITRAN driver
+Replacement for the reference's pylineread HITRAN driver
 (reference: SURVEY.md section 2.2, pylineread dbtype ``hit``; manual
 tex:446-503).  Parses the fixed-width 160-character HITRAN 2004+
 record format into packed numpy arrays.

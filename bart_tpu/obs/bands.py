@@ -10,7 +10,7 @@ W[nfilt, nwave] such that
 is numerically identical to the reference's
 trapz(spectrum * nifilter, specwn[band]) per filter — including the
 filter normalization and, for eclipse geometry, the stellar-flux
-division and (Rp/Rs)^2 factor folded into W.  One MXU matmul instead
+division and (Rp/Rs)^2 factor folded into W.  One matmul instead
 of nfilt host-side loops.
 """
 
@@ -85,15 +85,16 @@ def build_band_matrix(
 
 
 def band_integrate(bands, spectrum: jax.Array) -> jax.Array:
-    """bandflux[..., nfilt] = spectrum[..., nwave] @ W.T (MXU matmul).
+    """bandflux[..., nfilt] = spectrum[..., nwave] @ W.T (one matmul).
 
     ``bands`` is a BandMatrix or a raw weight array (the forward model
     passes its — possibly padded/sharded — tables copy).
 
-    precision=HIGHEST: the TPU default lowers f32 matmuls to bf16
-    multiplies, a ~1e-3 systematic on band fluxes — too coarse for
-    chi^2 against percent-level eclipse depths.  The matmul is tiny
-    ([nwave] x [nwave, nfilt]), so full precision is free.
+    precision=HIGHEST: the default precision may round f32 operands
+    (TF32 on the GPU keeps ~3 decimal digits), a ~1e-3 systematic on
+    band fluxes — too coarse for chi^2 against percent-level eclipse
+    depths.  The matmul is tiny ([nwave] x [nwave, nfilt]), so full
+    precision is free.
     """
     w = bands.weights if isinstance(bands, BandMatrix) else bands
     return jnp.matmul(spectrum, w.T, precision=jax.lax.Precision.HIGHEST)

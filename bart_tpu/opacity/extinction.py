@@ -1,20 +1,12 @@
 """Line-by-line extinction: tiled Voigt cross-section synthesis.
 
-TPU-native replacement for the reference's extinction.c/opacity.c
-(reference: SURVEY.md section 2.2): instead of tabulating Voigt
-profiles on a wnosamp-oversampled grid and accumulating per line on
-the CPU, we bucket lines onto wavenumber tiles (host, once) and
-evaluate the Voigt function *directly* for every (condition, line,
-gridpoint) triple on the TPU — dense, static-shaped, VPU-saturating.
-
-Design note (round-2 measurement): XLA's own fusion of the
-strength/Voigt/mask/reduce chain runs the full demo-scale grid build
-(2700 conditions x 6.9e10 Voigt points) in 3.6 s device time on
-v5e — 1.9e10 Voigt pts/s ~ 4.8 Tflop/s f32, i.e. VPU-bound.  A
-hand-written Pallas kernel for this op (round 1) lost to that fusion
-on lane->sublane line-data relayouts and was deleted; the production
-Pallas effort lives where it wins, in the fused tau/flux stages
-(rt/fused.py).
+Replacement for the reference's extinction.c/opacity.c (reference:
+SURVEY.md section 2.2): instead of tabulating Voigt profiles on a
+wnosamp-oversampled grid and accumulating per line on the CPU, we
+bucket lines onto wavenumber tiles (host, once) and evaluate the
+Voigt function *directly* for every (condition, line, gridpoint)
+triple on the device — dense and static-shaped.  The profile and the
+line sum are plain XLA (see ``_line_sum`` for how they are split).
 
 Pipeline:
 
@@ -341,6 +333,20 @@ def _line_strength(tiles: LineTiles, T, q_fn: Callable):
     return tiles.s296 * qr * boltz * stim * tiles.weight
 
 
+def _line_sum(sw, prof):
+    """sigma[nt, W] = sum_l sw[nt, l] prof[nt, l, W].
+
+    ``prof`` is materialized first (optimization barrier): with the
+    Faddeeva series fused into the reduction, XLA's GPU compiler spent
+    9 minutes on that one kernel at demo width (100 layers x 27 T x
+    2501 bins x 30k lines, on an H100); apart, each part compiles in
+    seconds.  The build's dispatch budget already sizes batches for
+    materialized [cond, nt, L, W] temporaries.
+    """
+    prof = jax.lax.optimization_barrier(prof)
+    return jnp.sum(sw[:, :, None] * prof, axis=1)
+
+
 def cross_section_tiles(
     tiles: LineTiles,
     T: jax.Array,
@@ -429,10 +435,10 @@ def cross_section_tiles(
                 reach = nwidth * jnp.maximum(gd, gl)
                 prof = prof * (jnp.abs(x_off) <= reach[:, :, None, None])
             # bin integral = sum prof * wv*(1+tan^2)*dtheta; average /bin
+            prof = jax.lax.optimization_barrier(prof)
             avg = (jnp.sum(prof * (1.0 + tan_t * tan_t), axis=-1)
                    * wv * dt / wndelt)                         # [nt, L, W]
-            contrib = (s * w)[:, :, None] * avg
-            return jnp.sum(contrib, axis=1)                    # [nt, W]
+            return _line_sum(s * w, avg)                       # [nt, W]
 
         # [nt, L, W] offsets: exact point sampling at the gridpoints
         dx = tiles.wn_tiles[:, None, :] - tiles.wn0[:, :, None]
@@ -442,8 +448,10 @@ def cross_section_tiles(
         if nwidth > 0:
             reach = nwidth * jnp.maximum(gd, gl)
             prof = prof * (jnp.abs(dx) <= reach[:, :, None])
-        contrib = (s * w)[:, :, None] * prof
-        return jnp.sum(contrib, axis=1)  # [nt, W]
+        # the barrier keeps the Faddeeva series out of the line-sum
+        # reduction: fused into one reduce kernel it took the GPU
+        # compiler minutes (see _line_sum)
+        return _line_sum(s * w, prof)                          # [nt, W]
 
     return jax.vmap(per_cond)(T, p_barye)  # [cond, nt, W]
 

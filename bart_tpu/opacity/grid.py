@@ -152,7 +152,7 @@ def build_opacity_grid(
         # Variable-depth tile buckets: geometric depth classes bound
         # the per-tile padding at 2x where uniform tiling pays the
         # deepest tile's line count everywhere (2.4-7x measured under
-        # HITEMP-like band-head skew; docs/PERFORMANCE.md scale table).
+        # HITEMP-like band-head skew; docs/LINE_SAMPLING.md findings).
         buckets = tile_lines_bucketed(
             ll, wn_grid, cutoff, tile_size=tile_size, ethresh=ethresh,
         )
@@ -177,7 +177,7 @@ def build_opacity_grid(
             # Depth chunking: cross-sections are ADDITIVE over lines,
             # so a bucket whose depth makes even ONE condition's
             # temporaries exceed the budget (3M-line band heads reach
-            # ~7e5 slots/tile = ~22 GB, which crashes the TPU worker)
+            # ~7e5 slots/tile = ~22 GB, more than a device holds)
             # is split along the line-depth axis and the partial
             # sigmas summed.
             nt_b, L_b = tiles.wn0.shape
@@ -257,7 +257,7 @@ def interp_opacity(grid_sigma: jax.Array, t_grid_min: float, t_grid_step: float,
     # Lerp as a one-hot matmul over the T axis: under vmap (the chain
     # batch) the gather alternative re-reads two table slices per chain
     # from HBM, while the matmul streams the whole table ONCE per batch
-    # through the MXU ([chain, layer, nT] x [mol, nT, layer, wn]).
+    # as one contraction ([chain, layer, nT] x [mol, nT, layer, wn]).
     w = jnp.zeros((nlayer, n_t), grid_sigma.dtype)
     w = w.at[lay, i0].set(1.0 - f).at[lay, i0 + 1].add(f)
     return jnp.einsum("lt,mtlw->mlw", w, grid_sigma,

@@ -1,11 +1,11 @@
 """Multi-host initialization.
 
-TPU-native replacement for the reference's mpiexec/MPICH launch
-(reference: BART.py:576-580; SURVEY.md section 2.5): every host runs
-the same program; ``init_distributed()`` wires them into one JAX
-process group over DCN, after which the (chain, wn) mesh spans all
-hosts' devices and the identical retrieval code runs unchanged —
-no process-pair messaging anywhere.
+Replacement for the reference's mpiexec/MPICH launch (reference:
+BART.py:576-580; SURVEY.md section 2.5): every host runs the same
+program; ``init_distributed()`` wires them into one JAX process group,
+after which the (chain, wn) mesh spans all hosts' devices and the
+identical retrieval code runs unchanged — no process-pair messaging
+anywhere.
 
 Launch (per host):
 
@@ -26,20 +26,19 @@ def init_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> bool:
-    """Initialize jax.distributed from args or the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
-    the TPU pod metadata JAX discovers automatically).  Returns True if
-    a multi-process group was formed."""
+    """Initialize jax.distributed from explicit arguments or the
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+    variables (nothing is discovered: without a coordinator address
+    this is a single-process run).  Returns True if a multi-process
+    group was formed."""
     import jax
 
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
     )
-    if coordinator_address is None and "TPU_WORKER_HOSTNAMES" not in os.environ:
+    if coordinator_address is None:
         return False
-    kwargs = {}
-    if coordinator_address:
-        kwargs["coordinator_address"] = coordinator_address
+    kwargs = {"coordinator_address": coordinator_address}
     if num_processes or os.environ.get("JAX_NUM_PROCESSES"):
         kwargs["num_processes"] = int(
             num_processes or os.environ["JAX_NUM_PROCESSES"]

@@ -1,6 +1,6 @@
 """Device mesh and sharding layout for multi-chip retrievals.
 
-TPU-native replacement for the reference's MPI topology (reference:
+Accelerator-native replacement for the reference's MPI topology (reference:
 SURVEY.md section 2.5 — mpiexec + one process per chain, SHM-shared
 opacity table): a 2-D ``(chain, wn)`` mesh where
 
@@ -14,10 +14,13 @@ Because each output wavenumber is independent in the forward model
 (lines were bucketed at table-build time), the runtime hot loop has
 exactly ONE collective: the psum XLA inserts for the band-integration
 matmul contraction over the sharded wn axis.  Everything else is
-embarrassingly parallel — the layout rides ICI with minimal traffic.
+embarrassingly parallel — one small all-reduce per batch over NVLink
+(every card reaches every other at the same rate, so the mesh shape
+follows the algorithm alone).
 
 Multi-host: initialize ``jax.distributed`` before calling make_mesh
-and the same code spans hosts (DCN for the chain axis, ICI for wn).
+and the same code spans hosts (the chain axis across hosts, wn
+within one).
 """
 
 from __future__ import annotations

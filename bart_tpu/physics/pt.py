@@ -1,4 +1,4 @@
-"""Temperature-pressure profile models (TPU-native, jit/vmap-safe).
+"""Temperature-pressure profile models (pure JAX, jit/vmap-safe).
 
 Re-implements the six parametric PT models of the reference BART
 (reference: code/PT.py:157-855) as pure JAX functions:

@@ -1,12 +1,12 @@
-"""Voigt line profile via the Faddeeva function (TPU-friendly).
+"""Voigt line profile via the Faddeeva function (branch-free).
 
 The reference tabulates Voigt profiles per (Doppler, Lorentz)-width pair
 on an oversampled wavenumber grid and looks profiles up by offset
-(reference: transit voigt.c semantics, SURVEY.md section 2.2).  On TPU we
+(reference: transit voigt.c semantics, SURVEY.md section 2.2).  Here we
 instead evaluate the profile *directly* at every (line, gridpoint) pair
-with a branch-free rational approximation — massively parallel on the
-VPU and more accurate than the reference (no line-center snapping to the
-oversampled grid).
+with a branch-free rational approximation — massively parallel on an
+accelerator and more accurate than the reference (no line-center
+snapping to the oversampled grid).
 
 Algorithm: Weideman (1994, SIAM J. Numer. Anal. 31, 1497) rational
 series for w(z) = exp(-z^2) erfc(-iz), valid for Im(z) >= 0.  With N=32

@@ -88,8 +88,7 @@ def eclipse_intensity(
     #   I = sum_l e^{-tau_l/mu} C_l,
     #   C_0 = Bmid_0, C_l = Bmid_l - Bmid_{l-1}, C_{L-1} = B_{L-1} - Bmid_{L-2}.
     # XLA then fuses the exp into the layer reduction instead of
-    # materializing the [mu, layer, wn] block in HBM (the hot spot of
-    # the whole forward model: ~25% faster end-to-end on v5e).
+    # materializing the [mu, layer, wn] block in device memory.
     if B.shape[0] == 1:   # single-layer slab: I = B e^{-tau/mu}
         return B * jnp.exp(-tau / mu[:, None, None])[:, 0, :]
     Bmid = 0.5 * (B[1:] + B[:-1])                              # [L-1, wn]

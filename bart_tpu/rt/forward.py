@@ -1,6 +1,6 @@
 """The forward model: parameter vector -> band fluxes, as one pure JAX fn.
 
-TPU-native inversion of the reference's process topology: where the
+Accelerator-side inversion of the reference's process topology: where the
 reference runs one MPI process per chain calling a C library per
 proposal (reference: code/BARTfunc.py:309-399 hot loop), bart_tpu makes
 the entire likelihood forward model a pure function
@@ -138,17 +138,15 @@ class ForwardModel:
         self.osamp = int(osamp)
         # folded rtosamp (rt.fused folded kernels): ``wn_grid`` is the
         # OUTPUT grid; ``opacity`` is tabulated on the K-times-finer
-        # folded_fine_grid and streamed sub-sample-major through the
-        # kernels, which emit bin-averaged (after exp) output spectra.
+        # folded_fine_grid and visited sub-sample-major by the folded
+        # forms, which emit bin-averaged (after exp) output spectra.
         self.fold = int(fold_osamp)
         # bf16-stored fine tables (production knob, cfg `foldtable16`):
-        # the folded fills run at Precision.DEFAULT, which rounds f32
-        # operands to bf16 per dot anyway — storing the K-times-fine
-        # table in bf16 is numerically near-equivalent ON TPU while
-        # halving its HBM residency, host->device upload, and stream
-        # bytes (measured: docs/PERFORMANCE.md).  Only the fine sigmak/
-        # frowsk tables are affected; the bin-mean (smooth/diagnostic)
-        # tables and the K=1 reference-parity path stay f32/HIGHEST.
+        # halves the K-times-fine table's device residency and upload;
+        # each sub-sample slice is widened to f32 before its
+        # contraction, so the error is the table's bf16 rounding alone.
+        # Only the fine sigmak/frowsk tables are affected; the bin-mean
+        # (smooth/diagnostic) tables and the K=1 path stay f32/HIGHEST.
         self.fold_bf16 = bool(fold_bf16) and self.fold > 1
         # static adaptive-resolution split (set in the fold branch)
         self._idx_fine = self._idx_smooth = None
@@ -238,7 +236,7 @@ class ForwardModel:
                         f"{self.fold} x {Wout}")
                 # All folded-table prep runs on HOST numpy: holding the
                 # K-times-fine table on device 3x at once (sig + the
-                # fold_table transpose + sigbar) can exhaust HBM for a
+                # fold_table transpose + sigbar) can exhaust memory for a
                 # production K=32 multi-molecule grid before the
                 # retrieval even starts; only the final hot-loop arrays
                 # land on device.
@@ -469,9 +467,9 @@ class ForwardModel:
         """Steps 4+5: extinction -> geometry -> spectrum (run_transit
         equivalent, BARTfunc.py:363).  Every gridded-opacity model —
         eclipse AND transit geometry, with CIA/Rayleigh/clouds folded
-        in as extra contraction rows — runs as ONE fused Pallas
-        kernel on TPU (rt.fused).  Only the on-the-fly (table-free)
-        line path uses the composable unfused ops."""
+        in as extra contraction rows — runs through rt.fused (eclipse
+        K=1 as one fused kernel on the GPU).  Only the on-the-fly
+        (table-free) line path uses the composable unfused ops."""
         cfg = self.config
         wn = t["wn"]
         if self._fusable and cfg.solution in ("eclipse", "direct"):

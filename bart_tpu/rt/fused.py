@@ -1,31 +1,13 @@
-"""Fused eclipse forward kernel (Pallas TPU).
+"""Fused forward kernels: extinction -> optical depth -> spectrum.
 
-The gridded-opacity eclipse hot path (reference SURVEY.md 3.2: opacity
-interpolation at the sampled T -> extinction -> vertical tau -> Planck
--> emergent flux, i.e. the body of transit's ``run_transit`` for the
-eclipse geometry) as ONE Pallas kernel.
-
-The unfused XLA pipeline materializes, per chain batch, the
-interpolated cross-sections [chain, mol, layer, wn], the extinction
-[chain, layer, wn], the optical depth [chain, layer, wn], and the
-mu-attenuation — ~15 GB of HBM traffic per 512-chain batch at demo
-scale, making the forward model bandwidth-bound.  This kernel streams
-the LAYER axis instead: for each (wavenumber tile, chain block)
-program, a fori_loop walks the layers keeping only [chains, tile]
-rows live in VMEM —
-
-    ext_l  = wrows_l @ tab[:, l, :]                         (MXU)
-    tau_l  = tau_{l-1} + 0.5 (ext_{l-1} + ext_l) dr_l       (VPU)
-    B_l    = Planck(T_l, wn)                                (VPU)
-    S_l    = sum_k w_k mu_k exp(-tau_l / mu_k)              (VPU)
-    F     += 0.5 (B_{l-1} + B_l) (S_{l-1} - S_l)            (VPU)
-
-with the closing boundary term F += B_bot S_bot (the exact isothermal
-limit, matching rt.eclipse.eclipse_intensity's summation form).
+The gridded-opacity hot path (reference SURVEY.md 3.2: opacity
+interpolation at the sampled T -> extinction -> tau -> Planck ->
+emergent flux, i.e. the body of transit's ``run_transit``) expressed
+as ONE rows-contraction per layer.
 
 Generalized extinction contract: every absorber the forward model
 supports is separable into (per-chain-per-layer weight) x (static
-table row over wn), so the whole extinction is one rows-contraction
+table row over wn), so the whole extinction is
 
     ext[l, w] = sum_r wrows[l, r] tab[r, l, w]
 
@@ -38,65 +20,68 @@ table row over wn), so the whole extinction is one rows-contraction
 * gray cloud deck  one row of ones:    weight = kappa x ramp(p or r)
                    (set_cloudtop / cloudrad+cloudext flags)
 
-The public entry ``fused_eclipse`` is a
-``jax.custom_batching.custom_vmap``: called per-sample (the
-ForwardModel/`Likelihood` contract) it runs the reference jnp math;
-under ``vmap`` (every sampler batches chains this way) the whole batch
-is dispatched to the Pallas kernel on TPU, or to the vmapped jnp path
-on other backends.  Numerics are f32 in both paths with the same
-operation order per layer, so the kernel is a drop-in for the hot
-loop while `ForwardModel.diagnostics` keeps the unfused path.
+Each entry point is a per-sample function that ``jax.vmap`` batches
+over chains.  The per-sample bodies (``_single`` and friends) are the
+plain jnp reference.  The eclipse K=1 entry ``fused_eclipse`` is a
+``jax.custom_batching.custom_vmap``: under ``vmap`` on a GPU the whole
+chain batch runs as one Pallas kernel compiled through Triton
+(``_kernel``), which streams the LAYER axis — for each (chain block,
+wn tile) program a loop walks the layers keeping only [chains, tile]
+values in registers —
+
+    ext_l  = wrows_l @ tab[:, l, :]                         (tensor core)
+    tau_l  = tau_{l-1} + 0.5 (ext_{l-1} + ext_l) dr_l
+    B_l    = Planck(T_l, wn)
+    S_l    = sum_k w_k mu_k exp(-tau_l / mu_k)
+    F     += 0.5 (B_{l-1} + B_l) (S_{l-1} - S_l)
+
+with the closing boundary term F += B_bot S_bot (the exact isothermal
+limit, matching rt.eclipse.eclipse_intensity's summation form).  The
+plain path instead materializes [chains, layers, wn] extinction, tau,
+S and B.  Elsewhere (the CPU) the batch is the vmapped plain path.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.custom_partitioning import custom_partitioning
+from jax.experimental.pallas import triton as pltriton
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from bart_tpu import constants as const
 from bart_tpu.rt.tau import TAU_CLAMP
 
 __all__ = [
     "fused_eclipse", "fused_transit", "fused_eclipse_folded",
-    "fused_transit_folded", "interp_weights", "fold_table",
+    "fused_transit_folded", "interp_weights", "fold_table", "use_kernel",
 ]
 
 _C1 = 2.0 * const.H_PLANCK * const.C_LIGHT**2   # 2 h c^2
-_VMEM_BUDGET = 20 * 2**20
-_VMEM_LIMIT = 96 * 2**20                         # v5e has 128 MB VMEM
 
-# Layers processed per loop iteration in the fused kernels.  The
-# per-iteration fixed cost (dynamic ref slicing, loop/branch machinery,
-# small-matmul dispatch) measured ~350 ns on v5e — comparable to the
-# layer's actual arithmetic — so U layers share ONE dynamic slice of
-# each operand and ONE scratch store (17x on the plain eclipse kernel:
-# 95 -> 5.5 ms per 512-chain demo batch, serialized timing).  Dispatch
-# code pads the layer axis (T edge-replicated, dr = 0, zero table
-# rows: exact no-ops in the recurrence) so the loop divides evenly.
-_CHUNK = 8
+# Eclipse kernel launch shape: a (chain block x wn tile) program keeps
+# five [CHAIN_BLOCK, WN_TILE] f32 carries in registers; powers of two
+# as Triton requires.  Chosen by timing 11 shapes at 512 chains on an
+# H100 (PERF.md): (32, 64, 4 warps, 3 stages) had the best median.
+CHAIN_BLOCK = 32
+WN_TILE = 64
+NUM_WARPS = 4
+NUM_STAGES = 3
 
-# Contraction precision inside the FOLDED kernels (fills + slant
-# matmuls).  Mosaic lowers only DEFAULT (single-pass bf16 inputs,
-# measured ~7e-4 max relative error on f32 operands) and HIGHEST
-# (full fp32, ~3e-7); Precision.HIGH has NO Mosaic lowering (a
-# NotImplementedError at compile time — round 3 shipped that in
-# _ftkernel, so the folded transit kernel could never actually run
-# on TPU; interpret-mode CPU tests don't exercise Mosaic and stayed
-# green).  DEFAULT's error is measured against the f64 reference at
-# the band-flux level (tests/test_fused.py TPU study +
-# docs/PERFORMANCE.md); the K=1 kernels keep HIGHEST throughout.
-_FOLD_PRECISION = None  # None = Precision.DEFAULT
-
-# test hook: None = auto (TPU -> pallas), True/False force
-FORCE_PALLAS: bool | None = None
-# set by tests to run the kernel in interpreter mode off-TPU
+# Test hook: run the kernel through the Pallas interpreter (and hence
+# choose it on any backend).
 INTERPRET: bool = False
+
+
+def use_kernel(backend: str | None = None) -> bool:
+    """The one dispatch rule: the eclipse kernel on a GPU (or in the
+    interpreter when INTERPRET is set), the vmapped plain path
+    elsewhere."""
+    backend = backend or jax.default_backend()
+    return INTERPRET or backend == "gpu"
 
 
 def interp_weights(n_nodes, t_min, t_step, T):
@@ -156,177 +141,203 @@ def _single(tab, wn, mu, muw, wrows, T, drp, powers=False):
     return 2.0 * jnp.pi * (flux + B[-1] * S[-1])
 
 
-def _kernel(tab_ref, wnm_ref, aux_ref, wn_ref, minv_ref, wmu_ref,
-            out_ref, *, L, nmu, powers=False, U=8):
-    """One (wn tile, chain block) program; chunked layer-streaming loop
-    (U layers share one dynamic slice + one batched MXU contraction —
-    see _CHUNK; the dispatch pads the layer axis so (L-1) divides U).
+def _kernel(tab_ref, w_ref, T_ref, dr_ref, wn_ref, quad_ref, out_ref, *,
+            L, nmu, powers, cb, tile):
+    """One (chain block, wn tile) program of the eclipse recurrence.
 
-    aux_ref packs per-(layer, chain) scalars [L, CB, 2]:
-    lane 0 = temperature, lane 1 = radius segment dr_{l-1,l} [cm]
-    (Mosaic requires the lane dim of a block to be a 128-multiple or
-    the full array dim — two packed lanes satisfy that where separate
-    [L, CB] blocks cannot once CB < 128).
+    tab_ref [L, Rp, Wp] layer-major table; w_ref [L, Cp, Rp] weight
+    rows; T_ref, dr_ref [L, Cp] temperature and radius segment
+    dr_{l-1,l} [cm]; wn_ref [Wp]; quad_ref [2, nmu] = (w_q mu_q,
+    1/mu_q).  All refs are whole arrays in device memory; the program
+    loads its [cb, *] and [*, tile] slices per layer.
     """
-    wn_row = wn_ref[0, :]                                     # [W]
-    wn3 = (_C1 * wn_row * wn_row * wn_row)[None, :]           # [1, W]
-    c2wn = (const.C2 * wn_row)[None, :]
+    cs = pl.ds(pl.program_id(0) * cb, cb)
+    ws = pl.ds(pl.program_id(1) * tile, tile)
+    wn = wn_ref[ws]
+    wn3 = (_C1 * wn * wn * wn)[None, :]                       # [1, tile]
+    c2wn = (const.C2 * wn)[None, :]
+    a = [quad_ref[0, q] for q in range(nmu)]
+    minv = [quad_ref[1, q] for q in range(nmu)]
 
-    def planck(T_col):                                        # [CB,1] -> [CB,W]
-        # exp(x)-1 instead of expm1 (no Pallas-TPU lowering); x >= 0.4
-        # for any IR retrieval grid, so no cancellation in f32.
-        return wn3 / (jnp.exp(c2wn / T_col) - 1.0)
+    def planck(l):                                            # -> [cb, tile]
+        return wn3 / (jnp.exp(c2wn / T_ref[l, cs][:, None]) - 1.0)
 
-    def smix(tau):                                            # [CB,W] -> [CB,W]
+    def smix(tau):
         tau_c = jnp.minimum(tau, TAU_CLAMP)
         if powers:
-            # expsum quadrature: S = Horner polynomial of u = e^-tau
-            # (nodes mu_q = 1/(q+1)); ONE exp for the whole sum
             u = jnp.exp(-tau_c)
             acc = jnp.zeros_like(tau)
-            for k in reversed(range(nmu)):
-                acc = u * (wmu_ref[0, k] + acc)
+            for q in reversed(range(nmu)):
+                acc = u * (a[q] + acc)
             return acc
         acc = jnp.zeros_like(tau)
-        for k in range(nmu):
-            acc = acc + wmu_ref[0, k] * jnp.exp(-tau_c * minv_ref[0, k])
+        for q in range(nmu):
+            acc = acc + a[q] * jnp.exp(-tau_c * minv[q])
         return acc
 
-    ext0 = jax.lax.dot_general(
-        wnm_ref[0], tab_ref[0],
-        (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32,
-    )
-    tau0 = jnp.zeros_like(ext0)
-    B0 = planck(aux_ref[0][:, 0:1])
-    S0 = smix(tau0)
-    flux0 = jnp.zeros_like(ext0)
+    def ext(l):
+        # full f32 products (no TF32): the tolerance of the band fluxes
+        # against the f64 reference was set with HIGHEST contractions
+        return pl.dot(w_ref[l, cs, :], tab_ref[l, :, ws], allow_tf32=False)
 
-    def body(c, carry):
+    ext0 = ext(0)
+    zero = jnp.zeros_like(ext0)
+
+    def body(l, carry):
         ext_p, tau_p, B_p, S_p, flux = carry
-        base = 1 + c * U
-        aux_c = aux_ref[pl.ds(base, U)]                       # [U, cb, 2]
-        wnm_c = wnm_ref[pl.ds(base, U)]                       # [U, cb, R]
-        tab_c = tab_ref[pl.ds(base, U)]                       # [U, R, tile]
-        # per-u unrolled dots, NOT one U-batched dot_general: the
-        # batched form lowers as one blocking matmul unit and loses
-        # the MXU/VPU overlap with the recurrence (measured 4.2 ->
-        # 7.3 ms per 512-chain batch on v5e)
-        for u in range(U):
-            ext_l = jax.lax.dot_general(
-                wnm_c[u], tab_c[u],
-                (((1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32,
-            )
-            tau_p = tau_p + 0.5 * (ext_p + ext_l) * aux_c[u, :, 1:2]
-            ext_p = ext_l
-            B_l = planck(aux_c[u, :, 0:1])
-            S_l = smix(tau_p)
-            flux = flux + 0.5 * (B_p + B_l) * (S_p - S_l)
-            B_p, S_p = B_l, S_l
-        return ext_p, tau_p, B_p, S_p, flux
+        ext_l = ext(l)
+        tau_l = tau_p + 0.5 * (ext_p + ext_l) * dr_ref[l, cs][:, None]
+        B_l = planck(l)
+        S_l = smix(tau_l)
+        flux = flux + 0.5 * (B_p + B_l) * (S_p - S_l)
+        return ext_l, tau_l, B_l, S_l, flux
 
     _, _, B_b, S_b, flux = jax.lax.fori_loop(
-        0, (L - 1) // U, body, (ext0, tau0, B0, S0, flux0)
-    )
-    out_ref[:, :] = 2.0 * jnp.pi * (flux + B_b * S_b)
+        1, L, body, (ext0, zero, planck(0), smix(zero), zero))
+    out_ref[...] = 2.0 * jnp.pi * (flux + B_b * S_b)
 
 
-def _pick_blocks(L, nrows, c_pad, w_pad):
-    """(tile, chain block) sizes.  Pallas double-buffers every input
-    block, the layer loop carries five [cb, tile] rows, and Mosaic pads
-    the row axis to 32 lanes — budget conservatively (the pallas_call
-    raises the scoped-VMEM limit to _VMEM_LIMIT for the many-row
-    case, e.g. 4 molecules x 27 T-nodes + CIA)."""
-    r32 = -(-nrows // 32) * 32
-    tile = 256
-    while tile > 128 and 2 * L * r32 * tile * 4 > _VMEM_BUDGET // 3:
-        tile //= 2
-    cb = 128
-    while cb > 8 and (2 * L * cb * r32 * 4 + 8 * cb * tile * 4
-                      > _VMEM_BUDGET // 3 or cb > c_pad):
-        cb //= 2
-    return min(tile, w_pad), min(cb, c_pad)
+def _pow2(n, floor):
+    return max(floor, 1 << (int(n) - 1).bit_length())
 
 
-def _pallas_batch(tab, wn, mu, muw, wrows, T, drp, powers=False):
-    """Batched Pallas dispatch: wrows [C, L, R], T [C, L], drp [C, L]."""
+def _kernel_batch(tab, wn, mu, muw, wrows, T, drp, *, powers):
+    """Batched eclipse kernel: wrows [C, L, R], T [C, L], drp [C, L]
+    -> flux [C, W].  Pads rows to a power of two >= 16 (zero rows),
+    chains to the chain block (T = 1000 K, dr = 0: finite, discarded)
+    and wn to the tile (wn = 1: finite, discarded)."""
     f32 = jnp.float32
     R, L, W = tab.shape
     C = T.shape[0]
     nmu = int(mu.shape[0])
-
-    # layer padding for the chunked loop: blocks/scratches are sized
-    # Lp, so the VMEM budget must use Lp, not L
-    U = _CHUNK
-    Lp = 1 + U * (-(-(L - 1) // U))
-    tile, cb = _pick_blocks(Lp, R, max(C, 8), max(W, 128))
-    w_pad = -(-W // tile) * tile
-    c_pad = -(-C // cb) * cb
+    cb = min(CHAIN_BLOCK, _pow2(C, 16))
+    tile = WN_TILE
+    Rp = _pow2(R, 16)
+    Cp = -(-C // cb) * cb
+    Wp = -(-W // tile) * tile
     tab_t = jnp.pad(jnp.transpose(tab.astype(f32), (1, 0, 2)),
-                    ((0, Lp - L), (0, 0), (0, w_pad - W)))     # [Lp, R, Wp]
-    wn_p = jnp.pad(wn.astype(f32), (0, w_pad - W), constant_values=1.0)
-
-    wnm_t = jnp.pad(jnp.transpose(wrows.astype(f32), (1, 0, 2)),
-                    ((0, Lp - L), (0, c_pad - C), (0, 0)))     # [Lp, Cp, R]
-    T_p = jnp.concatenate(
-        [T.astype(f32)] + [T.astype(f32)[:, -1:]] * (Lp - L), axis=1)
-    drp_p = jnp.pad(drp.astype(f32), ((0, 0), (0, Lp - L)))
-    aux = jnp.stack([T_p, drp_p], axis=-1)                    # [C, Lp, 2]
-    aux_t = jnp.pad(jnp.transpose(aux, (1, 0, 2)),
-                    ((0, 0), (0, c_pad - C), (0, 0)),
-                    constant_values=1000.0)                    # [Lp, Cp, 2]
-
-    grid = (w_pad // tile, c_pad // cb)
+                    ((0, 0), (0, Rp - R), (0, Wp - W)))        # [L, Rp, Wp]
+    w_t = jnp.pad(jnp.transpose(wrows.astype(f32), (1, 0, 2)),
+                  ((0, 0), (0, Cp - C), (0, Rp - R)))          # [L, Cp, Rp]
+    T_t = jnp.pad(T.astype(f32).T, ((0, 0), (0, Cp - C)),
+                  constant_values=1000.0)                      # [L, Cp]
+    dr_t = jnp.pad(drp.astype(f32).T, ((0, 0), (0, Cp - C)))
+    wn_p = jnp.pad(wn.astype(f32), (0, Wp - W), constant_values=1.0)
+    quad = jnp.stack([muw * mu, 1.0 / mu]).astype(f32)         # [2, nmu]
     out = pl.pallas_call(
-        functools.partial(_kernel, L=Lp, nmu=nmu, powers=powers, U=U),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((Lp, R, tile), lambda i, j: (0, 0, i)),
-            pl.BlockSpec((Lp, cb, R), lambda i, j: (0, j, 0)),
-            pl.BlockSpec((Lp, cb, 2), lambda i, j: (0, j, 0)),
-            pl.BlockSpec((1, tile), lambda i, j: (0, i)),
-            pl.BlockSpec((1, nmu), lambda i, j: (0, 0)),
-            pl.BlockSpec((1, nmu), lambda i, j: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((cb, tile), lambda i, j: (j, i)),
-        out_shape=jax.ShapeDtypeStruct((c_pad, w_pad), f32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_LIMIT,
-        ),
+        functools.partial(_kernel, L=L, nmu=nmu, powers=powers, cb=cb,
+                          tile=tile),
+        grid=(Cp // cb, Wp // tile),
+        out_specs=pl.BlockSpec((cb, tile), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((Cp, Wp), f32),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES),
         interpret=INTERPRET,
-    )(
-        tab_t, wnm_t, aux_t, wn_p[None, :],
-        (1.0 / mu.astype(f32))[None, :],
-        (muw.astype(f32) * mu.astype(f32))[None, :],
-    )
+        name="fused_eclipse",
+    )(tab_t, w_t, T_t, dr_t, wn_p, quad)
     return out[:C, :W]
 
 
+def _axis(spec, i):
+    return spec[i] if i < len(spec) else None
+
+
+@functools.lru_cache(maxsize=None)
+def _partitioned_kernel(powers: bool):
+    """``_kernel_batch`` as a custom_partitioning op: on a (chain, wn)
+    mesh each device runs the kernel on its own chain and wn shard
+    (every output element depends only on its own chain and wn), so
+    sharded tables are never gathered."""
+    def batch(tab, wn, mu, muw, wrows, T, drp):
+        return _kernel_batch(tab, wn, mu, muw, wrows, T, drp, powers=powers)
+
+    fn = custom_partitioning(batch)
+
+    def shardings(mesh, out_spec):
+        c, w = _axis(out_spec, 0), _axis(out_spec, 1)
+
+        def s(*axes):
+            return NamedSharding(mesh, P(*axes))
+
+        args = (s(None, None, w), s(w), s(), s(),
+                s(c, None, None), s(c, None), s(c, None))
+        return args, s(c, w)
+
+    def infer(mesh, arg_shapes, result_shape):
+        c = _axis(arg_shapes[4].sharding.spec, 0)
+        w = _axis(arg_shapes[0].sharding.spec, 2)
+        return NamedSharding(mesh, P(c, w))
+
+    def partition(mesh, arg_shapes, result_shape):
+        args, out = shardings(mesh, result_shape.sharding.spec)
+        return mesh, batch, out, args
+
+    fn.def_partition(
+        partition=partition,
+        infer_sharding_from_operands=infer,
+        sharding_rule="r l w, w, q, q, c l r, c l, c l -> c w",
+        need_replication_factors=("r", "l", "q"),
+    )
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _eclipse_entry(powers: bool):
+    """custom_vmap eclipse entry specialized on ``powers`` (cached so
+    every ForwardModel with the same quadrature shares one jaxpr)."""
+    single = functools.partial(_single, powers=powers)
+
+    @jax.custom_batching.custom_vmap
+    def entry(tab, wn, mu, muw, wrows, T, drp):
+        return single(tab, wn, mu, muw, wrows, T, drp)
+
+    @entry.def_vmap
+    def _vmap(axis_size, in_batched, *args):
+        chain_batch = (False,) * 4 + (True,) * 3
+        if tuple(in_batched) == chain_batch and use_kernel():
+            out = _partitioned_kernel(powers)(*args)
+            return out.astype(args[5].dtype), True
+        axes = tuple(0 if b else None for b in in_batched)
+        return jax.vmap(single, in_axes=axes)(*args), True
+
+    return entry
+
+
+def fused_eclipse(tab, wn, mu, muw, wrows, T, drp, powers=False):
+    """Eclipse flux F[wn] from extinction rows, one sample.
+
+    tab [rows, layer, wn] static absorber rows; wrows [layer, rows]
+    per-sample weights; T [layer] K; drp [layer] cm with drp[0] == 0
+    (drp[l] = r_{l-1} - r_l).  Under ``vmap`` over (wrows, T, drp) the
+    batch runs as one fused kernel on a GPU (``use_kernel``).
+    ``powers=True`` requires the expsum quadrature
+    (rt.eclipse.expsum_weights).
+    """
+    return _eclipse_entry(powers)(tab, wn, mu, muw, wrows, T, drp)
+
+
 # ---------------------------------------------------------------------
-# Fused transit (transmission) kernel.
+# Transit (transmission) geometry.
 #
-# Same rows-contraction extinction contract as fused_eclipse, but the
-# geometry is slant-path: with (G, wgt) = rt.transit_geom.slant_geometry
-# the whole per-sample observable is three MXU contractions
+# Same rows-contraction extinction contract, but the geometry is
+# slant-path: with (G, wgt) = rt.transit_geom.slant_geometry the whole
+# per-sample observable is three contractions
 #
 #     ext = wrows @ tab          [L, W]   (T-interp x line/CIA/... rows)
 #     tau = G @ ext              [L, W]   (slant-path quadrature)
 #     out = wgt @ (1 - e^-tau)   [W]      (annulus trapezoid)
 #
 # and depth = (r_deep^2 + out) / r_star^2 is finished by the caller.
-# Unlike the eclipse recurrence, tau couples ALL layers per impact
-# parameter, so the kernel first streams the layers once to build ext
-# in VMEM scratch, then runs the two geometry matmuls per chain —
-# never materializing [chain, mol, layer, wn] or [chain, layer, wn]
-# intermediates in HBM (the unfused path's bandwidth bill).
+# Batched over chains these are batched GEMMs, which XLA hands to the
+# GPU's matrix libraries, so transit has no kernel of its own.
 
 
-def _tsingle(tab, wrows, G, wgt):
-    """Reference jnp path, one sample (same math as interp_opacity
-    einsum + rt.tau.tau_slant + transit_depth via slant_geometry)."""
+def fused_transit(tab, wrows, G, wgt):
+    """Annulus-integrated absorption out[wn] (see slant_geometry), one
+    sample.  tab [rows, layer, wn] static absorber rows; wrows
+    [layer, rows] per-sample weights; (G [layer, layer], wgt [layer])
+    from slant_geometry of the per-sample radii."""
     ext = jnp.einsum("lr,rlw->lw", wrows, tab,
                      precision=jax.lax.Precision.HIGHEST)
     tau = jax.lax.dot_general(
@@ -338,140 +349,8 @@ def _tsingle(tab, wrows, G, wgt):
                       precision=jax.lax.Precision.HIGHEST)
 
 
-def _tkernel(tab_ref, wnm_ref, g_ref, wgt_ref, out_ref, ext_scr,
-             *, L, CB, U=_CHUNK):
-    """One (wn tile, chain block) program: layer-streamed extinction
-    into VMEM scratch (U layers per chunk — see _CHUNK; the dispatch
-    pads L to a multiple of U with zero rows), then slant-geometry
-    matmuls BATCHED over the chain block (one batched dot_general
-    instead of CB unrolled small matmuls — the unrolled form serialized
-    CB matmul+exp+store sequences and left the MXU idle between them)."""
-
-    def fill(c, _):
-        base = c * U
-        wnm_c = wnm_ref[pl.ds(base, U)]                       # [U, cb, R]
-        tab_c = tab_ref[pl.ds(base, U)]                       # [U, R, tile]
-        ext_c = jax.lax.dot_general(
-            wnm_c, tab_c,
-            (((2,), (1,)), ((0,), (0,))),                     # batch over U
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )                                                     # [U, cb, tile]
-        # chain-major scratch layout: Mosaic's batched matmul requires
-        # batch dims at the SAME operand position, so the slant matmul
-        # below needs ext as [cb, Lp, tile]
-        ext_scr[:, pl.ds(base, U), :] = jnp.swapaxes(ext_c, 0, 1)
-        return 0
-
-    jax.lax.fori_loop(0, L // U, fill, 0)
-
-    # tau[c, b, w] = sum_l g[c, b, l] ext[c, l, w]  (batch over chains)
-    tau = jax.lax.dot_general(
-        g_ref[:, :, :], ext_scr[:, :, :],
-        (((2,), (1,)), ((0,), (0,))),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32,
-    )                                                         # [cb, Lp, tile]
-    absorb = 1.0 - jnp.exp(-jnp.minimum(tau, TAU_CLAMP))
-    # [cb, 1, Lp] x [cb, Lp, tile]: the unit free dim is required —
-    # Mosaic cannot lower a batched dot whose lhs has NO
-    # non-contracting dim (attr-parse failure observed on v5e)
-    out_ref[:, :] = jax.lax.dot_general(
-        wgt_ref[:, :][:, None, :], absorb,
-        (((2,), (1,)), ((0,), (0,))),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32,
-    )[:, 0, :]                                                # [cb, tile]
-
-
-def _tpallas_batch(tab, wrows, G, wgt):
-    """Batched Pallas dispatch: wrows [C, L, R], G [C, L, L], wgt [C, L]."""
-    f32 = jnp.float32
-    R, L, W = tab.shape
-    C = wgt.shape[0]
-
-    # layer padding for the chunked fill (zero rows: weight 0, no tau);
-    # blocks/scratches are sized Lp, so budget with Lp
-    U = _CHUNK
-    Lp = U * (-(-L // U))
-    tile, cb = _pick_blocks(Lp, R, max(C, 8), max(W, 128))
-    # Larger chain blocks amortize the table-tile reload across more
-    # chains (measured on v5e at demo scale: cb 8 -> 64 takes the
-    # batch from 12.3 to 6.6 ms, bitwise-identical).  Budget VMEM for
-    # the double-buffered inputs + the [Lp, cb, tile] ext scratch +
-    # the [cb, Lp, Lp] geometry blocks.
-    r32 = -(-R // 32) * 32
-    cb = min(cb, 64)
-    while cb > 8 and (
-        2 * Lp * r32 * tile * 4          # tab tile (double-buffered)
-        + 2 * cb * (Lp * r32 + Lp * Lp) * 4  # wrows + G blocks
-        + Lp * cb * tile * 4             # ext scratch
-        > 2 * _VMEM_BUDGET              # 40 MB of the 96 MB limit
-    ):
-        cb //= 2
-    w_pad = -(-W // tile) * tile
-    c_pad = -(-C // cb) * cb
-    tab_t = jnp.pad(jnp.transpose(tab.astype(f32), (1, 0, 2)),
-                    ((0, Lp - L), (0, 0), (0, w_pad - W)))     # [Lp, R, Wp]
-    wnm_t = jnp.pad(jnp.transpose(wrows.astype(f32), (1, 0, 2)),
-                    ((0, Lp - L), (0, c_pad - C), (0, 0)))     # [Lp, Cp, R]
-    g_p = jnp.pad(G.astype(f32),
-                  ((0, c_pad - C), (0, Lp - L), (0, Lp - L)))
-    wgt_p = jnp.pad(wgt.astype(f32), ((0, c_pad - C), (0, Lp - L)))
-
-    grid = (w_pad // tile, c_pad // cb)
-    out = pl.pallas_call(
-        functools.partial(_tkernel, L=Lp, CB=cb, U=U),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((Lp, R, tile), lambda i, j: (0, 0, i)),
-            pl.BlockSpec((Lp, cb, R), lambda i, j: (0, j, 0)),
-            pl.BlockSpec((cb, Lp, Lp), lambda i, j: (j, 0, 0)),
-            pl.BlockSpec((cb, Lp), lambda i, j: (j, 0)),
-        ],
-        out_specs=pl.BlockSpec((cb, tile), lambda i, j: (j, i)),
-        out_shape=jax.ShapeDtypeStruct((c_pad, w_pad), f32),
-        scratch_shapes=[pltpu.VMEM((cb, Lp, tile), f32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_LIMIT,
-        ),
-        interpret=INTERPRET,
-    )(tab_t, wnm_t, g_p, wgt_p)
-    return out[:C, :W]
-
-
-@jax.custom_batching.custom_vmap
-def fused_transit(tab, wrows, G, wgt):
-    """Annulus-integrated absorption out[wn] (see slant_geometry), one
-    sample.  tab [rows, layer, wn] static absorber rows; wrows
-    [layer, rows] per-sample weights; (G [layer, layer], wgt [layer])
-    from slant_geometry of the per-sample radii.  Under ``vmap`` over
-    (wrows, G, wgt) the batch runs as one fused Pallas kernel on TPU.
-    """
-    return _tsingle(tab, wrows, G, wgt)
-
-
-@fused_transit.def_vmap
-def _ft_vmap(axis_size, in_batched, tab, wrows, G, wgt):
-    wb, gb, cb = in_batched[1], in_batched[2], in_batched[3]
-    if in_batched[0] or not (wb and gb and cb):
-        axes = tuple(0 if b else None for b in in_batched)
-        return jax.vmap(_tsingle, in_axes=axes)(tab, wrows, G, wgt), True
-
-    use_pallas = FORCE_PALLAS
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        out = _tpallas_batch(tab, wrows, G, wgt).astype(wgt.dtype)
-    else:
-        out = jax.vmap(
-            _tsingle, in_axes=(None, 0, 0, 0)
-        )(tab, wrows, G, wgt)
-    return out, True
-
-
 # ---------------------------------------------------------------------
-# Folded-rtosamp kernels: publication-accuracy band fluxes WITHOUT the
+# Folded rtosamp: publication-accuracy band fluxes WITHOUT the
 # plain-rtosamp mode's K-times-larger outputs and band matrix.
 #
 # The unbiased high-fidelity scheme (docs/LINE_SAMPLING.md) evaluates
@@ -480,18 +359,13 @@ def _ft_vmap(axis_size, in_batched, tab, wrows, G, wgt):
 # nonlinearity) back to the output bins.  Plain `rtosamp` does this by
 # running the whole pipeline on the fine grid — K x the outputs, the
 # band matrix, and (for eclipse) K x the Planck exponentials.  The
-# folded kernels keep the fine grid entirely inside VMEM:
-#
-#   * the fine table is laid out sub-sample-major, [K, L, R, Wout]
-#     (``fold_table``), and the Pallas grid gains an inner K axis, so
-#     each program handles one sub-sample of one (wn tile, chain
-#     block) and the table streams from HBM exactly once per chain
-#     block;
-#   * a VMEM scratch accumulates the bin-averaged source function
-#     Sbar[l] = avg_k S_l (eclipse) or absorption avg_k (1 - e^-tau)
-#     (transit) across the K grid steps;
-#   * on the last sub-sample the Planck-weighted layer sum (eclipse)
-#     or annulus quadrature (transit) runs ONCE on the output bins.
+# folded form keeps the fine grid as a leading sub-sample axis of the
+# table, [K, R, L, Wout] (``fold_table``), and averages the source
+# function Sbar[l] = avg_k S_l (eclipse) or the absorption
+# avg_k (1 - e^-tau) (transit) over it, so the Planck-weighted layer
+# sum (eclipse) or annulus quadrature (transit) runs once on the
+# output bins.  The sub-samples are visited one at a time (lax.scan),
+# so the working set is that of one sub-sample.
 #
 # Planck is evaluated at the bin-center wavenumber: B varies by
 # ~0.7 x (wndelt/wn) ~ 2e-4 across a 1 cm-1 bin and enters averaged
@@ -504,26 +378,44 @@ def _ft_vmap(axis_size, in_batched, tab, wrows, G, wgt):
 
 def fold_table(tab_fine, K):
     """[R, L, Wout*K] bin-major fine table -> [K, R, L, Wout]
-    sub-sample-major layout for the folded kernels (fine index
-    f = b*K + k on the utils.grids.folded_fine_grid midpoint grid)."""
+    sub-sample-major layout (fine index f = b*K + k on the
+    utils.grids.folded_fine_grid midpoint grid)."""
     R, L, WK = tab_fine.shape
     W = WK // K
     return jnp.transpose(tab_fine.reshape(R, L, W, K), (3, 0, 1, 2))
 
 
-def _single_folded(tabk, wn_out, mu, muw, wrows, T, drp, powers=False):
-    """Reference jnp path, one sample.  tabk [K, R, L, Wout]."""
-    K = tabk.shape[0]
-    ext = jnp.einsum("lr,krlw->klw", wrows, tabk,
-                     precision=jax.lax.Precision.HIGHEST)
-    seg = 0.5 * (ext[:, :-1] + ext[:, 1:]) * drp[None, 1:, None]
-    Lm1 = seg.shape[1]
-    tri = jnp.tril(jnp.ones((Lm1, Lm1), seg.dtype))
-    tau = jnp.einsum("ij,kjw->kiw", tri, seg,
-                     precision=jax.lax.Precision.HIGHEST)
-    tau = jnp.concatenate([jnp.zeros_like(tau[:, :1]), tau], axis=1)
-    S = _smix_jnp(tau, mu, muw, powers)
-    sbar = jnp.mean(S, axis=0)                                 # [L, Wout]
+def _fold_mean(fn, tabk, out_like):
+    """avg_k fn(tabk[k]) accumulated over the sub-sample axis one k at
+    a time.  A bf16-stored table (fold_bf16) is widened per slice."""
+    def step(acc, tab):
+        return acc + fn(tab.astype(out_like.dtype)), None
+
+    acc, _ = jax.lax.scan(step, jnp.zeros_like(out_like), tabk)
+    return acc / tabk.shape[0]
+
+
+def fused_eclipse_folded(tabk, wn_out, mu, muw, wrows, T, drp,
+                         powers=False):
+    """Eclipse flux F[wn_out] with rtosamp folding, one sample.  tabk
+    [K, R, L, Wout] sub-sample-major fine table (``fold_table``);
+    wn_out the OUTPUT bin centers; other arguments as fused_eclipse.
+    ``powers=True`` requires the expsum quadrature."""
+    R, L, W = tabk.shape[1:]
+
+    def source(tab):                                           # [L, Wout]
+        ext = jnp.einsum("lr,rlw->lw", wrows, tab,
+                         precision=jax.lax.Precision.HIGHEST)
+        seg = 0.5 * (ext[:-1] + ext[1:]) * drp[1:, None]
+        tri = jnp.tril(jnp.ones((L - 1, L - 1), seg.dtype))
+        tau = jax.lax.dot_general(
+            tri, seg, (((1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
+        )
+        tau = jnp.concatenate([jnp.zeros_like(tau[:1]), tau], axis=0)
+        return _smix_jnp(tau, mu, muw, powers)
+
+    sbar = _fold_mean(source, tabk, jnp.zeros((L, W), T.dtype))
     wn3 = _C1 * wn_out**3
     B = wn3[None, :] / (jnp.exp(const.C2 * wn_out[None, :] / T[:, None])
                         - 1.0)                                 # [L, Wout]
@@ -532,397 +424,21 @@ def _single_folded(tabk, wn_out, mu, muw, wrows, T, drp, powers=False):
     return 2.0 * jnp.pi * (flux + B[-1] * sbar[-1])
 
 
-def _fkernel(tab_ref, wnm_ref, aux_ref, wn_ref, minv_ref, wmu_ref,
-             out_ref, sbar_scr, *, L, nmu, K, powers=False, U=_CHUNK):
-    """One (wn tile, chain block, sub-sample) program.
+def fused_transit_folded(tabk, wrows, G, wgt):
+    """Annulus-integrated absorption out[wn_out] with rtosamp folding,
+    one sample.  tabk [K, R, L, Wout] (``fold_table``); other
+    arguments as fused_transit."""
+    L, W = tabk.shape[2:]
 
-    Grid is (wn tiles, chain blocks, K) with the sub-sample axis
-    INNERMOST: the wrows/aux blocks are fetched once per chain block
-    (their index maps ignore k) while the [K, L, R, Wout] table
-    streams its k-slice each step.  ``sbar_scr`` [L, CB, W] persists
-    across grid steps, accumulating avg_k S_l; the Planck pass runs
-    once at k == K-1.  Layers advance U at a time (see _CHUNK).
-    """
-    k = pl.program_id(2)
-    wn_row = wn_ref[0, :]                                     # [W]
-    wn3 = (_C1 * wn_row * wn_row * wn_row)[None, :]
-    c2wn = (const.C2 * wn_row)[None, :]
-
-    def planck(T_col):
-        return wn3 / (jnp.exp(c2wn / T_col) - 1.0)
-
-    def smix(tau):
-        tau_c = jnp.minimum(tau, TAU_CLAMP)
-        if powers:
-            u = jnp.exp(-tau_c)
-            acc = jnp.zeros_like(tau)
-            for q in reversed(range(nmu)):
-                acc = u * (wmu_ref[0, q] + acc)
-            return acc
-        acc = jnp.zeros_like(tau)
-        for q in range(nmu):
-            acc = acc + wmu_ref[0, q] * jnp.exp(-tau_c * minv_ref[0, q])
-        return acc
-
-    # bf16-stored fold tables (ForwardModel fold_bf16): cast the
-    # weight rows to the table dtype so the dot runs bf16 x bf16 ->
-    # f32 — numerically what Precision.DEFAULT already does to f32
-    # operands, with half the table stream/residency
-    tdt = tab_ref.dtype
-
-    ext0 = jax.lax.dot_general(
-        wnm_ref[0].astype(tdt), tab_ref[0, 0],
-        (((1,), (0,)), ((), ())),
-        precision=_FOLD_PRECISION,
-        preferred_element_type=jnp.float32,
-    )
-    # tau = 0 at the top layer: S there is the constant quadrature sum.
-    # The dispatch pre-scales the weights by 1/K (saving one multiply
-    # per (layer, chain, fine point) in the body), so the top layer —
-    # written once at k == 0, not accumulated — restores the K factor.
-    s_top = jnp.zeros_like(ext0) + K * jnp.sum(wmu_ref[0, :])
-
-    @pl.when(k == 0)
-    def _():
-        sbar_scr[0] = s_top
-
-    def body(c, carry):
-        ext_p, tau_p = carry
-        base = 1 + c * U
-        aux_c = aux_ref[pl.ds(base, U)]                       # [U, cb, 2]
-        wnm_c = wnm_ref[pl.ds(base, U)]                       # [U, cb, R]
-        tab_c = tab_ref[0, pl.ds(base, U)]                    # [U, R, tile]
-        # per-u unrolled dots (see _kernel note: a U-batched dot
-        # loses MXU/VPU overlap with the recurrence at K=1; at K=32 a
-        # U-batched fill was MEASURED at parity — 32.5 vs 32.7 ms on
-        # the WASP all-fine batch — so the simpler unrolled form is
-        # kept); folded-mode precision _FOLD_PRECISION (module note)
-        s_list = []
-        for u in range(U):
-            ext_l = jax.lax.dot_general(
-                wnm_c[u].astype(tdt), tab_c[u],
-                (((1,), (0,)), ((), ())),
-                precision=_FOLD_PRECISION,
-                preferred_element_type=jnp.float32,
-            )
-            tau_p = tau_p + 0.5 * (ext_p + ext_l) * aux_c[u, :, 1:2]
-            ext_p = ext_l
-            s_list.append(smix(tau_p))    # weights carry the 1/K
-        s_c = jnp.stack(s_list)                               # [U, cb, tile]
-
-        @pl.when(k == 0)
-        def _():
-            sbar_scr[pl.ds(base, U)] = s_c
-
-        @pl.when(k > 0)
-        def _():
-            sbar_scr[pl.ds(base, U)] += s_c
-
-        return ext_p, tau_p
-
-    jax.lax.fori_loop(0, (L - 1) // U, body, (ext0, jnp.zeros_like(ext0)))
-
-    @pl.when(k == K - 1)
-    def _():
-        B0 = planck(aux_ref[0][:, 0:1])
-        flux0 = jnp.zeros_like(B0 * s_top)
-
-        def body2(c, carry):
-            B_p, sb_p, flux = carry
-            base = 1 + c * U
-            aux_c = aux_ref[pl.ds(base, U)]
-            sb_c = sbar_scr[pl.ds(base, U)]
-            for u in range(U):
-                B_l = planck(aux_c[u, :, 0:1])
-                sb_l = sb_c[u]
-                flux = flux + 0.5 * (B_p + B_l) * (sb_p - sb_l)
-                B_p, sb_p = B_l, sb_l
-            return B_p, sb_p, flux
-
-        B_b, sb_b, flux = jax.lax.fori_loop(
-            0, (L - 1) // U, body2, (B0, sbar_scr[0], flux0)
+    def absorption(tab):                                       # [L, Wout]
+        ext = jnp.einsum("lr,rlw->lw", wrows, tab,
+                         precision=jax.lax.Precision.HIGHEST)
+        tau = jax.lax.dot_general(
+            G, ext, (((1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
         )
-        out_ref[:, :] = 2.0 * jnp.pi * (flux + B_b * sb_b)
+        return 1.0 - jnp.exp(-jnp.minimum(tau, TAU_CLAMP))
 
-
-def _fpallas_batch(tabk, wn_out, mu, muw, wrows, T, drp, powers=False):
-    """Folded batched dispatch: tabk [K, R, L, Wout], wrows [C, L, R]."""
-    f32 = jnp.float32
-    K, R, L, W = tabk.shape
-    C = T.shape[0]
-    nmu = int(mu.shape[0])
-
-    # pad layers so (Lp - 1) divides the chunk: T edge-replicated,
-    # dr = 0, zero table/weight rows — exact no-ops in the recurrence
-    # (tau and S freeze; flux differences vanish; the boundary term
-    # uses the replicated bottom T); blocks/scratches are sized Lp,
-    # so budget with Lp
-    U = _CHUNK
-    Lp = 1 + U * (-(-(L - 1) // U))
-    tile, cb = _pick_blocks(Lp, R, max(C, 8), max(W, 128))
-    # the sbar scratch [Lp, cb, tile] joins the VMEM bill
-    r32 = -(-R // 32) * 32
-    while cb > 8 and (
-        2 * Lp * cb * r32 * 4 + Lp * cb * tile * 4 + 8 * cb * tile * 4
-        > _VMEM_BUDGET
-    ):
-        cb //= 2
-    w_pad = -(-W // tile) * tile
-    c_pad = -(-C // cb) * cb
-    # a bf16-stored table (fold_bf16) streams as-is — casting to f32
-    # here would double both the HBM residency and the stream bytes
-    tab_f = tabk if tabk.dtype == jnp.bfloat16 else tabk.astype(f32)
-    tab_t = jnp.pad(jnp.transpose(tab_f, (0, 2, 1, 3)),
-                    ((0, 0), (0, Lp - L), (0, 0), (0, w_pad - W)))
-    wn_p = jnp.pad(wn_out.astype(f32), (0, w_pad - W), constant_values=1.0)
-    wnm_t = jnp.pad(jnp.transpose(wrows.astype(f32), (1, 0, 2)),
-                    ((0, Lp - L), (0, c_pad - C), (0, 0)))     # [Lp, Cp, R]
-    T_p = jnp.concatenate(
-        [T.astype(f32)] + [T.astype(f32)[:, -1:]] * (Lp - L), axis=1)
-    drp_p = jnp.pad(drp.astype(f32), ((0, 0), (0, Lp - L)))
-    aux = jnp.stack([T_p, drp_p], axis=-1)
-    aux_t = jnp.pad(jnp.transpose(aux, (1, 0, 2)),
-                    ((0, 0), (0, c_pad - C), (0, 0)),
-                    constant_values=1000.0)                    # [Lp, Cp, 2]
-
-    grid = (w_pad // tile, c_pad // cb, K)
-    out = pl.pallas_call(
-        functools.partial(_fkernel, L=Lp, nmu=nmu, K=K, powers=powers),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, Lp, R, tile), lambda i, j, k: (k, 0, 0, i)),
-            pl.BlockSpec((Lp, cb, R), lambda i, j, k: (0, j, 0)),
-            pl.BlockSpec((Lp, cb, 2), lambda i, j, k: (0, j, 0)),
-            pl.BlockSpec((1, tile), lambda i, j, k: (0, i)),
-            pl.BlockSpec((1, nmu), lambda i, j, k: (0, 0)),
-            pl.BlockSpec((1, nmu), lambda i, j, k: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((cb, tile), lambda i, j, k: (j, i)),
-        out_shape=jax.ShapeDtypeStruct((c_pad, w_pad), f32),
-        scratch_shapes=[pltpu.VMEM((Lp, cb, tile), f32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_LIMIT,
-        ),
-        interpret=INTERPRET,
-    )(
-        tab_t, wnm_t, aux_t, wn_p[None, :],
-        (1.0 / mu.astype(f32))[None, :],
-        # quadrature weights pre-scaled by 1/K: the kernel's smix then
-        # yields the bin-average contribution directly (see s_top note)
-        (muw.astype(f32) * mu.astype(f32) / K)[None, :],
-    )
-    return out[:C, :W]
-
-
-@functools.lru_cache(maxsize=None)
-def _eclipse_entry(folded: bool, powers: bool):
-    """custom_vmap eclipse entry specialized on (folded, powers) —
-    static flags that pick the kernel variant, cached so every
-    ForwardModel with the same configuration shares one jaxpr."""
-    single = _single_folded if folded else _single
-    batch = _fpallas_batch if folded else _pallas_batch
-
-    @jax.custom_batching.custom_vmap
-    def entry(tab, wn, mu, muw, wrows, T, drp):
-        return single(tab, wn, mu, muw, wrows, T, drp, powers=powers)
-
-    @entry.def_vmap
-    def _vmap(axis_size, in_batched, tab, wn, mu, muw, wrows, T, drp):
-        wb, tb, db = in_batched[4], in_batched[5], in_batched[6]
-        if any(in_batched[:4]) or not (wb and tb and db):
-            axes = tuple(0 if b else None for b in in_batched)
-            return jax.vmap(
-                functools.partial(single, powers=powers), in_axes=axes
-            )(tab, wn, mu, muw, wrows, T, drp), True
-
-        use_pallas = FORCE_PALLAS
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        if use_pallas:
-            out = batch(tab, wn, mu, muw, wrows, T, drp,
-                        powers=powers).astype(T.dtype)
-        else:
-            out = jax.vmap(
-                functools.partial(single, powers=powers),
-                in_axes=(None,) * 4 + (0, 0, 0),
-            )(tab, wn, mu, muw, wrows, T, drp)
-        return out, True
-
-    return entry
-
-
-def fused_eclipse_folded(tabk, wn_out, mu, muw, wrows, T, drp,
-                         powers=False):
-    """Eclipse flux F[wn_out] with in-kernel rtosamp folding, one
-    sample.  tabk [K, R, L, Wout] sub-sample-major fine table
-    (``fold_table``); wn_out the OUTPUT bin centers; other arguments
-    as fused_eclipse.  Under ``vmap`` the batch runs as one Pallas
-    kernel with an inner sub-sample grid axis on TPU.  ``powers=True``
-    requires the expsum quadrature (rt.eclipse.expsum_weights) and
-    evaluates the whole mu sum with one exponential.
-    """
-    return _eclipse_entry(True, powers)(
-        tabk, wn_out, mu, muw, wrows, T, drp)
-
-
-def _tsingle_folded(tabk, wrows, G, wgt):
-    """Reference jnp path, one sample: folded transit."""
-    ext = jnp.einsum("lr,krlw->klw", wrows, tabk,
-                     precision=jax.lax.Precision.HIGHEST)
-    tau = jnp.einsum("bl,klw->kbw", G, ext,
-                     precision=jax.lax.Precision.HIGHEST)
-    absorb = 1.0 - jnp.exp(-jnp.minimum(tau, TAU_CLAMP))
-    abar = jnp.mean(absorb, axis=0)                            # [L, Wout]
+    abar = _fold_mean(absorption, tabk, jnp.zeros((L, W), wgt.dtype))
     return jnp.einsum("l,lw->w", wgt, abar,
                       precision=jax.lax.Precision.HIGHEST)
-
-
-def _ftkernel(tab_ref, wnm_ref, g_ref, wgt_ref, out_ref, ext_scr,
-              abar_scr, *, L, CB, K, U=_CHUNK):
-    """Folded transit program: layer-streamed extinction for sub-sample
-    k into scratch (U layers per chunk), slant matmuls batched over the
-    chain block, absorption accumulated into ``abar_scr`` across the K
-    grid steps, annulus quadrature at k == K-1.
-
-    Folded-mode precision: fills and slant matmuls run at
-    _FOLD_PRECISION (see the module note: Mosaic supports only
-    DEFAULT/HIGHEST; the K=1 kernels keep HIGHEST — there the matmuls
-    are 1/K of the cost and set the reference-parity fidelity)."""
-    k = pl.program_id(2)
-    invK = 1.0 / K
-
-    def fill(c, _):
-        base = c * U
-        # cast weight rows to the table dtype (bf16-stored fold
-        # tables, see _fkernel note)
-        wnm_c = wnm_ref[pl.ds(base, U)].astype(tab_ref.dtype)  # [U, cb, R]
-        tab_c = tab_ref[0, pl.ds(base, U)]                    # [U, R, tile]
-        ext_c = jax.lax.dot_general(
-            wnm_c, tab_c,
-            (((2,), (1,)), ((0,), (0,))),                     # batch over U
-            precision=_FOLD_PRECISION,
-            preferred_element_type=jnp.float32,
-        )                                                     # [U, cb, tile]
-        # chain-major scratch: see the _tkernel layout note
-        ext_scr[:, pl.ds(base, U), :] = jnp.swapaxes(ext_c, 0, 1)
-        return 0
-
-    jax.lax.fori_loop(0, L // U, fill, 0)
-
-    # tau[c, b, w] = sum_l g[c, b, l] ext[c, l, w]  (batch over chains)
-    tau = jax.lax.dot_general(
-        g_ref[:, :, :], ext_scr[:, :, :],
-        (((2,), (1,)), ((0,), (0,))),
-        precision=_FOLD_PRECISION,
-        preferred_element_type=jnp.float32,
-    )                                                         # [cb, Lp, tile]
-    a = (1.0 - jnp.exp(-jnp.minimum(tau, TAU_CLAMP))) * invK
-
-    @pl.when(k == 0)
-    def _():
-        abar_scr[:, :, :] = a
-
-    @pl.when(k > 0)
-    def _():
-        abar_scr[:, :, :] += a
-
-    @pl.when(k == K - 1)
-    def _():
-        # unit lhs free dim: see the _tkernel quadrature note
-        out_ref[:, :] = jax.lax.dot_general(
-            wgt_ref[:, :][:, None, :], abar_scr[:, :, :],
-            (((2,), (1,)), ((0,), (0,))),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )[:, 0, :]                                            # [cb, tile]
-
-
-def _ftpallas_batch(tabk, wrows, G, wgt):
-    """Folded transit dispatch: tabk [K, R, L, Wout]."""
-    f32 = jnp.float32
-    K, R, L, W = tabk.shape
-    C = wgt.shape[0]
-
-    U = _CHUNK
-    Lp = U * (-(-L // U))
-    tile, cb = _pick_blocks(Lp, R, max(C, 8), max(W, 128))
-    r32 = -(-R // 32) * 32
-    cb = min(cb, 64)
-    while cb > 8 and (
-        2 * Lp * r32 * tile * 4
-        + 2 * cb * (Lp * r32 + Lp * Lp) * 4
-        + 2 * Lp * cb * tile * 4          # ext + abar scratches
-        > 2 * _VMEM_BUDGET
-    ):
-        cb //= 2
-    w_pad = -(-W // tile) * tile
-    c_pad = -(-C // cb) * cb
-    tab_f = tabk if tabk.dtype == jnp.bfloat16 else tabk.astype(f32)
-    tab_t = jnp.pad(jnp.transpose(tab_f, (0, 2, 1, 3)),
-                    ((0, 0), (0, Lp - L), (0, 0), (0, w_pad - W)))
-    wnm_t = jnp.pad(jnp.transpose(wrows.astype(f32), (1, 0, 2)),
-                    ((0, Lp - L), (0, c_pad - C), (0, 0)))
-    g_p = jnp.pad(G.astype(f32),
-                  ((0, c_pad - C), (0, Lp - L), (0, Lp - L)))
-    wgt_p = jnp.pad(wgt.astype(f32), ((0, c_pad - C), (0, Lp - L)))
-
-    grid = (w_pad // tile, c_pad // cb, K)
-    out = pl.pallas_call(
-        functools.partial(_ftkernel, L=Lp, CB=cb, K=K, U=U),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, Lp, R, tile), lambda i, j, k: (k, 0, 0, i)),
-            pl.BlockSpec((Lp, cb, R), lambda i, j, k: (0, j, 0)),
-            pl.BlockSpec((cb, Lp, Lp), lambda i, j, k: (j, 0, 0)),
-            pl.BlockSpec((cb, Lp), lambda i, j, k: (j, 0)),
-        ],
-        out_specs=pl.BlockSpec((cb, tile), lambda i, j, k: (j, i)),
-        out_shape=jax.ShapeDtypeStruct((c_pad, w_pad), f32),
-        scratch_shapes=[pltpu.VMEM((cb, Lp, tile), f32),
-                        pltpu.VMEM((cb, Lp, tile), f32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_LIMIT,
-        ),
-        interpret=INTERPRET,
-    )(tab_t, wnm_t, g_p, wgt_p)
-    return out[:C, :W]
-
-
-@jax.custom_batching.custom_vmap
-def fused_transit_folded(tabk, wrows, G, wgt):
-    """Annulus-integrated absorption out[wn_out] with in-kernel rtosamp
-    folding, one sample.  tabk [K, R, L, Wout] (``fold_table``); other
-    arguments as fused_transit."""
-    return _tsingle_folded(tabk, wrows, G, wgt)
-
-
-@fused_transit_folded.def_vmap
-def _ftf_vmap(axis_size, in_batched, tabk, wrows, G, wgt):
-    wb, gb, cbb = in_batched[1], in_batched[2], in_batched[3]
-    if in_batched[0] or not (wb and gb and cbb):
-        axes = tuple(0 if b else None for b in in_batched)
-        return jax.vmap(_tsingle_folded, in_axes=axes)(
-            tabk, wrows, G, wgt), True
-
-    use_pallas = FORCE_PALLAS
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        out = _ftpallas_batch(tabk, wrows, G, wgt).astype(wgt.dtype)
-    else:
-        out = jax.vmap(
-            _tsingle_folded, in_axes=(None, 0, 0, 0)
-        )(tabk, wrows, G, wgt)
-    return out, True
-
-
-def fused_eclipse(tab, wn, mu, muw, wrows, T, drp, powers=False):
-    """Eclipse flux F[wn] from extinction rows, one sample.
-
-    tab [rows, layer, wn] static absorber rows; wrows [layer, rows]
-    per-sample weights; T [layer] K; drp [layer] cm with drp[0] == 0
-    (drp[l] = r_{l-1} - r_l).  Under ``vmap`` over (wrows, T, drp) the
-    batch runs as one fused Pallas kernel on TPU.  ``powers=True``
-    requires the expsum quadrature (rt.eclipse.expsum_weights).
-    """
-    return _eclipse_entry(False, powers)(tab, wn, mu, muw, wrows, T, drp)

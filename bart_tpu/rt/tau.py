@@ -4,7 +4,7 @@ Equivalent of the reference's tau.c/slantpath.c and the vertical path
 of eclipse.c (reference: SURVEY.md section 2.2).  The reference's
 ``toomuch`` early exit becomes masked saturation: every layer is
 computed (static shapes), and downstream consumers clamp at tau_max —
-on TPU the uniform computation is faster than any data-dependent exit.
+on an accelerator the uniform computation beats a data-dependent exit.
 
 Conventions: layers top-first (index 0 = lowest pressure), radius
 descending [cm], extinction [cm-1] per (layer, wn).
@@ -30,11 +30,11 @@ def tau_vertical(extinction: jax.Array, radius_cm: jax.Array) -> jax.Array:
     (eclipse.c vertical path).
 
     The cumulative sum runs over the (short) layer axis of a
-    [layer, wn] block; XLA lowers cumsum to a log-depth scan that
-    re-reads the whole block ~log2(L) times from HBM.  A triangular
-    matmul computes the same prefix sums in ONE pass, on the MXU,
-    at full f32 accuracy (precision=HIGHEST): ~5x faster at the demo
-    scale (256 chains x 100 layers x 2501 wn on v5e).
+    [layer, wn] block; XLA may lower cumsum to a log-depth scan that
+    re-reads the whole block ~log2(L) times.  A triangular matmul
+    computes the same prefix sums in ONE pass at full f32 accuracy
+    (precision=HIGHEST: no reduced-precision inputs, which on the GPU
+    means no TF32).
     """
     dr = radius_cm[:-1] - radius_cm[1:]                       # [L-1] > 0
     seg = 0.5 * (extinction[:-1] + extinction[1:]) * dr[:, None]
@@ -81,6 +81,7 @@ def tau_slant(extinction: jax.Array, radius_cm: jax.Array) -> jax.Array:
     dx = x[:, :-1] - x[:, 1:]                                  # [L, L-1] >= 0
     emid = 0.5 * (extinction[:-1] + extinction[1:])            # [L-1, wn]
     # tau_i = 2 * sum_k dx[i, k] * emid[k]  — a matmul over the layer
-    # axis (HIGHEST: don't let the TPU bf16 default truncate tau)
+    # axis (HIGHEST: full f32 products — the default precision may
+    # use TF32 on the GPU, three decimal digits, which truncates tau)
     return 2.0 * jnp.einsum("ik,kw->iw", dx, emid,
                             precision=jax.lax.Precision.HIGHEST)

@@ -6,9 +6,9 @@ fraction was measured at demo density (30k lines: 43-57%% smooth);
 this script measures it at HITEMP-class density (300k / 1M / 3M
 lines with band-head skew over the WASP-12b range, nwidth=60,
 ethresh=1e-99 semantics) and then measures the folded-kernel
-throughput AT each measured fraction, so docs/PERFORMANCE.md's
-scaling table carries measured numbers instead of an extrapolation
-from demo density.
+throughput AT each measured fraction, so the scaling carries measured
+numbers instead of an extrapolation from demo density
+(docs/LINE_SAMPLING.md records the fractions).
 
 Method:
 1. fine-bin fraction: build the K-times-fine cross-section table on a
@@ -68,8 +68,8 @@ def fine_fraction(nlines, wn_out, full_conds=False):
 
 def kernel_rate(frac, wn_out, nchain=None, nrep=None):
     if nchain is None:
-        on_tpu = jax.default_backend() == "tpu"
-        nchain, nrep = (512, 10) if on_tpu else (4, 1)
+        on_gpu = jax.default_backend() == "gpu"
+        nchain, nrep = (512, 10) if on_gpu else (4, 1)
     """Folded eclipse/transit evals/s on synthetic tables with a
     round(frac*W) fine / rest smooth split (demo shapes: 100 layers,
     27 T-nodes, one molecule)."""

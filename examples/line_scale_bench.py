@@ -16,7 +16,7 @@ wavenumber range:
 * an on-the-fly (table-free) single-eval timing at 300k lines.
 
 Usage:  python examples/line_scale_bench.py [nlines ...]
-Results are recorded in docs/PERFORMANCE.md.
+The padding results are summarized in docs/LINE_SAMPLING.md.
 """
 
 import json

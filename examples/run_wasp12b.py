@@ -6,15 +6,14 @@ The reference names its WASP-12b example as *the* regression test
 examples/WASP-12b/BART.cfg).  This script is bart_tpu's committed
 equivalent: a 4-molecule (H2O/CO2/CO/CH4) eclipse retrieval over the
 4 Spitzer IRAC channels against synthetic depths generated from a
-known truth, asserting convergence AND truth recovery, and writing the
-timing numbers that back docs/PERFORMANCE.md's "WASP-12b-class MCMC"
-row.
+known truth, asserting convergence AND truth recovery, and writing its
+timing numbers.
 
 Modes:
 
   python examples/run_wasp12b.py            # full: numit=1e5, 50 chains,
                                             # pinned cfg data (numeric
-                                            # regression; run on TPU)
+                                            # regression; run on a GPU)
   python examples/run_wasp12b.py --short    # CI-sized: reduced grids +
                                             # numit, data regenerated
                                             # from the truth at the

@@ -1,7 +1,7 @@
 """Worker for the multi-host smoke test (test_parallel.py).
 
 Launched as N separate OS processes that form one JAX process group
-over the jax.distributed coordination service — the TPU-native
+over the jax.distributed coordination service — the accelerator-side
 replacement for the reference's mpiexec/MPICH world (reference:
 BART.py:576-580; bart_tpu/parallel/distributed.py).  Each process
 contributes 4 virtual CPU devices; the global (chain,) mesh spans all

@@ -1,6 +1,8 @@
 """Equilibrium-chemistry tests: analytic reaction constants, element
 conservation, and the classic solar-composition behaviors."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -14,14 +16,16 @@ from bart_tpu.chem.tea import (
 from bart_tpu.chem.thermo import gibbs_rt
 from bart_tpu.io.abundances import read_elements
 
-REF = "/root/reference"
+# Asplund et al. 2009 subset in the repository (examples/make_demo_inputs.py)
+ABUN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "examples", "demo_inputs", "abundances_Asplund2009.txt")
 SPECIES = ["H", "He", "C", "N", "O", "H2", "CO", "CO2", "CH4", "H2O", "N2", "NH3"]
 ELEMENTS = ["H", "He", "C", "N", "O"]
 
 
 @pytest.fixture(scope="module")
 def elems():
-    return read_elements(f"{REF}/inputs/abundances_Asplund2009.txt")
+    return read_elements(ABUN)
 
 
 def equilibrium(elems, T0, p=None):
@@ -278,8 +282,7 @@ def test_iron_ionization_matches_saha():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "H", "He", "Fe", "Fe+", "e-"]
     tables = builtin_tables(species)
     T = np.array([3000.0, 4000.0])
@@ -321,8 +324,7 @@ def test_metal_hydride_equilibrium():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "H", "He", "Fe", "FeH", "Cr", "CrH",
                "Mg", "MgH", "Ca", "CaH"]
     tables = builtin_tables(species)
@@ -362,8 +364,7 @@ def test_sodium_ionization_matches_saha():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "He", "Na", "Na+", "e-"]
     tables = builtin_tables(species)
     T = np.array([1500.0, 3000.0, 3500.0])
@@ -401,8 +402,7 @@ def test_tio_vo_equilibrium_lockup():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "He", "H2O", "CO", "Ti", "TiO", "V", "VO"]
     tables = builtin_tables(species)
     T = np.array([1500.0, 2500.0, 3500.0])
@@ -460,8 +460,7 @@ def test_sulfur_partition_h2s_dominance():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "H", "He", "H2O", "H2S", "SH", "S", "SO", "S2",
                "SO2"]
     tables = builtin_tables(species)
@@ -498,8 +497,7 @@ def test_chlorine_partition_alkali_halides():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "H", "He", "Na", "K", "NaCl", "KCl", "HCl", "Cl"]
     tables = builtin_tables(species)
     T = np.array([800.0, 1300.0, 1600.0, 3000.0])
@@ -531,8 +529,7 @@ def test_phosphorus_partition_ph3():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "H", "He", "PH3", "PH", "P"]
     tables = builtin_tables(species)
     T = np.array([600.0, 1500.0, 2500.0, 3000.0])
@@ -556,8 +553,7 @@ def test_titanium_dioxide_low_t_carrier():
     from bart_tpu.chem.thermo_tables import builtin_tables
     from bart_tpu.io.abundances import read_elements
 
-    elems = read_elements(
-        "/root/reference/inputs/abundances_Asplund2009.txt")
+    elems = read_elements(ABUN)
     species = ["H2", "H", "He", "H2O", "CO", "Ti", "TiO", "TiO2",
                "V", "VO", "VO2"]
     tables = builtin_tables(species)

@@ -1,5 +1,7 @@
 """Tests for grids, TEP/filter/abundance/atm I/O, stoichiometry, hydrostatics."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -13,7 +15,9 @@ from bart_tpu.physics import stoich
 from bart_tpu.physics.hydro import radius_profile
 from bart_tpu.utils import grids
 
-REF = "/root/reference"
+# assumed demo inputs in the repository (examples/make_demo_inputs.py)
+DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "examples", "demo_inputs")
 
 
 def test_pressure_grid_roundtrip(tmp_path):
@@ -34,27 +38,35 @@ def test_wavenumber_grid_demo():
 
 
 def test_tep_reader():
-    tep = TepFile(f"{REF}/inputs/tep/HD209458b.tep")
+    tep = TepFile(f"{DEMO}/demo_system.tep")
     assert tep.getfloat("Ts") == pytest.approx(6075.0)
-    assert tep.getfloat("Rs") == pytest.approx(1.145)
-    sys = PlanetSystem.from_tep(f"{REF}/inputs/tep/HD209458b.tep")
+    assert tep.getfloat("Rs") == pytest.approx(7.97e8 / 6.96e8, rel=1e-12)
+    assert tep.getvalue("planetname") == "demo-b"
+    sys = PlanetSystem.from_tep(f"{DEMO}/demo_system.tep")
+    # the unit conversions invert the ones the file was written with
+    np.testing.assert_allclose(
+        [sys.t_star, sys.r_star, sys.logg_star, sys.sma, sys.r_planet,
+         sys.m_planet],
+        [6075.0, 7.97e8, 4.37, 7.05e9, 9.44e7, 1.32e27], rtol=1e-12)
     assert 500 < sys.teff_planet < 3000
-    assert 500 < sys.g_planet_cgs < 5000  # HD209458b ~ 936 cm/s2
+    assert 500 < sys.g_planet_cgs < 5000  # HD209458b-like ~ 980 cm/s2
     assert sys.rprs == pytest.approx(
-        sys.r_planet / (1.145 * 6.96e8), rel=1e-12
+        sys.r_planet / (tep.getfloat("Rs") * 6.96e8), rel=1e-12
     )
 
 
 def test_filter_reader():
-    wn, tr = read_filter(f"{REF}/inputs/filters/demo/fdemo01.dat")
+    wn, tr = read_filter(f"{DEMO}/fdemo01.dat")
     assert np.all(np.diff(wn) > 0)
     assert tr.max() == pytest.approx(1.0)
-    # fdemo01 spans 2.0--? um: wn upper bound = 1/(2um) = 5000 cm-1
-    assert wn[-1] == pytest.approx(5000.0, rel=1e-6)
+    # fdemo01: 2540-2660 cm-1 top-hat, stored in microns (wavelength
+    # descending as wn ascends) and returned on ascending wn
+    assert wn[0] == pytest.approx(2540.0, rel=1e-12)
+    assert wn[-1] == pytest.approx(2660.0, rel=1e-12)
 
 
 def test_abundances_scale_swap(tmp_path):
-    t = read_elements(f"{REF}/inputs/abundances_Asplund2009.txt")
+    t = read_elements(f"{DEMO}/abundances_Asplund2009.txt")
     assert t.dex_of("H") == pytest.approx(12.0)
     assert t.mass_of("He") == pytest.approx(4.002602)
 
@@ -82,7 +94,7 @@ def test_stoich():
     assert stoich.strip_janaf("He_ref") == "He"
     assert stoich.strip_janaf("H_ion_p") == "H+"
 
-    t = read_elements(f"{REF}/inputs/abundances_Asplund2009.txt")
+    t = read_elements(f"{DEMO}/abundances_Asplund2009.txt")
     assert stoich.species_mass("H2O", t) == pytest.approx(2 * 1.008 + 15.999)
     # mean molar mass of an 85/15 H2/He mix:
     mu = stoich.mean_molar_mass(

@@ -126,15 +126,15 @@ def test_retrieval_other_pt_models(demo_problem):
     from bart_tpu.rt.forward import ForwardConfig, ForwardModel
     from bart_tpu.utils.grids import pressure_grid
 
-    REF = "/root/reference"
-    system = PlanetSystem.from_tep(f"{REF}/inputs/tep/HD209458b.tep")
+    from test_rt import DEMO, DEMO_TEP
+    system = PlanetSystem.from_tep(DEMO_TEP)
     pressure = pressure_grid(30, 1e-5, 100.0)
     wn = np.arange(2500.0, 5001.0, 20.0)
     ll = synthetic_linelist("CH4", 2500.0, 5000.0, 800, seed=13)
     grid = build_opacity_grid({"CH4": ll}, wn,
                               np.arange(400.0, 3001.0, 400.0), pressure,
                               cond_batch=40, dtype=jnp.float64)
-    filters = [rf(f"{REF}/inputs/filters/demo/fdemo{i:02d}.dat")
+    filters = [rf(f"{DEMO}/fdemo{i:02d}.dat")
                for i in range(1, 11)]
     starfl, _ = blackbody_star(wn, system.t_star)
     bands = build_band_matrix(wn, filters, star_flux=starfl,

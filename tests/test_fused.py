@@ -1,10 +1,12 @@
-"""Fused eclipse kernel (rt/fused.py) parity tests.
+"""Fused forward (rt/fused.py) parity tests.
 
-The Pallas kernel runs in interpreter mode here (CPU); on TPU the same
-code path is exercised compiled.  Reference is the composable unfused
-pipeline (opacity.grid.interp_opacity + opacity.cia/rayleigh/cloud +
-rt.tau.tau_vertical + rt.eclipse.eclipse_flux) that golden-tests
-elsewhere pin to the reference formulas (SURVEY.md 2.2/3.2).
+The eclipse kernel (Pallas through Triton) runs in the Pallas
+interpreter here (CPU); compiled for the GPU it is checked by
+chip_smoke.py and by the ``gpu``-marked test below.  Reference is the
+composable unfused pipeline (opacity.grid.interp_opacity +
+opacity.cia/rayleigh/cloud + rt.tau.tau_vertical +
+rt.eclipse.eclipse_flux) that golden-tests elsewhere pin to the
+reference formulas (SURVEY.md 2.2/3.2).
 """
 
 import numpy as np
@@ -17,11 +19,9 @@ import bart_tpu.rt.fused as fused
 from bart_tpu.rt.eclipse import raygrid_weights
 
 
-@pytest.fixture
-def problem():
+def _problem(M=2, nT=9, L=23, W=300, C=6, seed=7):
     """Random rows-contraction problem in the fused_eclipse contract."""
-    rng = np.random.default_rng(7)
-    M, nT, L, W, C = 2, 9, 23, 300, 6
+    rng = np.random.default_rng(seed)
     sigma = jnp.asarray(rng.lognormal(-46, 2, (M, nT, L, W)))
     wn = jnp.asarray(np.linspace(2500, 5000, W))
     mu, muw = raygrid_weights([0.0, 20.0, 40.0, 60.0, 80.0])
@@ -38,6 +38,20 @@ def problem():
     wrows = (nm[:, :, :, None] * w_t[:, :, None, :]).reshape(C, L, M * nT)
     return (tab, wn, jnp.asarray(mu), jnp.asarray(muw), wrows, T, drp,
             sigma, n_mol)
+
+
+@pytest.fixture
+def problem():
+    return _problem()
+
+
+@pytest.fixture
+def interpret():
+    """Run the eclipse kernel through the Pallas interpreter."""
+    old = fused.INTERPRET
+    fused.INTERPRET = True
+    yield
+    fused.INTERPRET = old
 
 
 def _unfused_reference(tab, wn, mu, muw, wrows, T, drp, sigma, n_mol):
@@ -70,31 +84,118 @@ def test_single_sample_matches_unfused(problem):
 
 
 def test_vmap_jnp_path_matches_unfused(problem):
-    old = fused.FORCE_PALLAS
-    fused.FORCE_PALLAS = False
-    try:
-        got = jax.vmap(
-            lambda w, t, d: fused.fused_eclipse(*problem[:4], w, t, d)
-        )(*problem[4:7])
-    finally:
-        fused.FORCE_PALLAS = old
+    assert not fused.use_kernel()          # the CPU takes the plain path
+    got = jax.vmap(
+        lambda w, t, d: fused.fused_eclipse(*problem[:4], w, t, d)
+    )(*problem[4:7])
     np.testing.assert_allclose(np.asarray(got), np.asarray(
         _unfused_reference(*problem)), rtol=1e-10)
 
 
-def test_pallas_interpret_matches_unfused(problem):
-    old_force, old_interp = fused.FORCE_PALLAS, fused.INTERPRET
-    fused.FORCE_PALLAS, fused.INTERPRET = True, True
-    try:
-        got = jax.vmap(
-            lambda w, t, d: fused.fused_eclipse(*problem[:4], w, t, d)
-        )(*problem[4:7])
-    finally:
-        fused.FORCE_PALLAS, fused.INTERPRET = old_force, old_interp
-    ref = _unfused_reference(*problem)
+# The wrapper's padding: chains to the chain block, wn to the tile,
+# rows to a power of two >= 16 — each case pads one and not the others
+# where the shapes allow (CHAIN_BLOCK 32, WN_TILE 64 by default).
+_PAD_CASES = {
+    "chains_wn_rows": dict(),                          # C 6, W 300, R 18
+    "exact_blocks": dict(M=2, nT=8, W=128, C=32),      # no padding at all
+    "chains_only": dict(M=2, nT=8, W=128, C=40),       # 2 chain blocks
+    "wn_only": dict(M=2, nT=8, W=200, C=32),
+    "rows_only": dict(M=1, nT=27, W=128, C=32),        # R 27 (demo) -> 32
+}
+
+
+@pytest.mark.parametrize("powers", [False, True], ids=["raygrid", "expsum"])
+@pytest.mark.parametrize("case", list(_PAD_CASES))
+def test_pallas_interpret_matches_unfused(case, powers, interpret):
+    from bart_tpu.rt.eclipse import expsum_weights
+
+    prob = _problem(**_PAD_CASES[case])
+    tab, wn, mu, muw, wrows, T, drp = prob[:7]
+    if powers:
+        mu, muw = (jnp.asarray(a) for a in expsum_weights(8))
+    got = jax.vmap(lambda w, t, d: fused.fused_eclipse(
+        tab, wn, mu, muw, w, t, d, powers=powers))(wrows, T, drp)
+    ref = jax.vmap(lambda w, t, d: fused._single(
+        tab, wn, mu, muw, w, t, d, powers=powers))(wrows, T, drp)
+    if not powers:
+        np.testing.assert_allclose(np.asarray(ref), np.asarray(
+            _unfused_reference(*prob)), rtol=1e-10)
+    assert got.shape == ref.shape == (T.shape[0], wn.shape[0])
     # kernel computes in f32
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=5e-5)
+
+
+def test_dispatch_rule(monkeypatch):
+    """One rule: the kernel on a GPU, the plain path elsewhere, the
+    interpreter on request; the vmapped entry traces to the kernel
+    exactly when the rule says so."""
+    assert fused.use_kernel("gpu") and not fused.use_kernel("cpu")
+    monkeypatch.setattr(fused, "INTERPRET", True)
+    assert fused.use_kernel("cpu")
+    monkeypatch.setattr(fused, "INTERPRET", False)
+
+    tab, wn, mu, muw, wrows, T, drp = _problem()[:7]
+
+    def jaxpr():
+        return str(jax.make_jaxpr(jax.vmap(
+            lambda w, t, d: fused.fused_eclipse(tab, wn, mu, muw, w, t, d)
+        ))(wrows, T, drp))
+
+    assert "pallas_call" not in jaxpr()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert "custom_partitioning" in jaxpr()
+    # a batch over the table (not the chain contract) stays plain
+    assert "custom_partitioning" not in str(jax.make_jaxpr(jax.vmap(
+        lambda tb: fused.fused_eclipse(tb, wn, mu, muw, wrows[0], T[0],
+                                       drp[0])))(tab[None]))
+
+
+def test_kernel_sharded_on_mesh_is_collective_free(interpret):
+    """On a (chain, wn) mesh each device runs the kernel on its own
+    chain and wn shard: no gathers, same result as unsharded."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    tab, wn, mu, muw, wrows, T, drp = _problem(W=256, C=8)[:7]
+    mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(2, 4),
+                ("chain", "wn"))
+
+    def put(x, *spec):
+        return jax.device_put(x, NamedSharding(mesh, P(*spec)))
+
+    f = jax.jit(jax.vmap(
+        lambda tb, w_n, w, t, d: fused.fused_eclipse(tb, w_n, mu, muw, w,
+                                                     t, d),
+        in_axes=(None, None, 0, 0, 0)))
+    args = (put(tab, None, None, "wn"), put(wn, "wn"), put(wrows, "chain"),
+            put(T, "chain"), put(drp, "chain"))
+    txt = f.lower(*args).compile().as_text()
+    for op in ("all-reduce", "all-gather", "collective-permute",
+               "all-to-all", "reduce-scatter"):
+        assert f" {op}(" not in txt and f"{op}-start" not in txt, op
+    got = f(*args)
+    assert got.sharding.spec == P("chain", "wn")
+    ref = jax.vmap(lambda w, t, d: fused._single(tab, wn, mu, muw, w, t, d)
+                   )(wrows, T, drp)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=5e-5)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_plain_on_gpu(monkeypatch):
+    """The kernel as compiled for the card == the plain path there
+    (chip_smoke.py runs the same comparison at bench width)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: the compiled Triton kernel")
+    tab, wn, mu, muw, wrows, T, drp = (
+        jnp.asarray(a, jnp.float32) for a in _problem(C=40)[:7])
+    f = jax.jit(jax.vmap(
+        lambda w, t, d: fused.fused_eclipse(tab, wn, mu, muw, w, t, d)))
+    got = f(wrows, T, drp)
+    monkeypatch.setattr(fused, "use_kernel", lambda backend=None: False)
+    ref = jax.jit(jax.vmap(
+        lambda w, t, d: fused.fused_eclipse(tab, wn, mu, muw, w, t, d)
+    ))(wrows, T, drp)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=5e-5)
 
 
 @pytest.mark.slow
@@ -229,35 +330,17 @@ def test_transit_single_sample_matches_unfused(tproblem):
 
 
 def test_transit_vmap_jnp_path_matches_unfused(tproblem):
-    old = fused.FORCE_PALLAS
-    fused.FORCE_PALLAS = False
-    try:
-        got = _fused_transit_batch(*tproblem)
-    finally:
-        fused.FORCE_PALLAS = old
+    got = _fused_transit_batch(*tproblem)
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(_unfused_transit_reference(*tproblem)),
         rtol=1e-9,
     )
 
 
-def test_transit_pallas_interpret_matches_unfused(tproblem):
-    old_force, old_interp = fused.FORCE_PALLAS, fused.INTERPRET
-    fused.FORCE_PALLAS, fused.INTERPRET = True, True
-    try:
-        got = _fused_transit_batch(*tproblem)
-    finally:
-        fused.FORCE_PALLAS, fused.INTERPRET = old_force, old_interp
-    ref = _unfused_transit_reference(*tproblem)
-    # kernel computes in f32; depths are O(1e-2) absolute
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-4)
-
-
 # ---------------------------------------------------------------------
-# Folded-rtosamp kernels (fused_eclipse_folded / fused_transit_folded):
-# the fine grid lives only inside the kernel; outputs are per-bin means
-# of the fine spectrum (average AFTER exp — docs/LINE_SAMPLING.md).
+# Folded rtosamp (fused_eclipse_folded / fused_transit_folded): outputs
+# are per-bin means of the fine spectrum (average AFTER exp —
+# docs/LINE_SAMPLING.md), accumulated one sub-sample at a time.
 
 
 @pytest.fixture
@@ -293,39 +376,23 @@ def _fine_then_average(fine, wn, mu, muw, wrows, T, drp, K):
 
 
 def test_folded_eclipse_jnp_matches_fine_average(fproblem):
-    """_single_folded == fine-grid evaluation + bin average, up to the
+    """fused_eclipse_folded == fine-grid evaluation + bin average, up to the
     bin-center-Planck approximation (~(wndelt/wn)^2 class, far below
     f32 resolution of the flux here)."""
     tabk, fine, wn, mu, muw, wrows, T, drp, K = fproblem
     ref = _fine_then_average(fine, wn, mu, muw, wrows, T, drp, K)
     got = jax.vmap(
-        lambda w, t, d: fused._single_folded(tabk, wn, mu, muw, w, t, d)
+        lambda w, t, d: fused.fused_eclipse_folded(tabk, wn, mu, muw, w,
+                                                   t, d)
     )(wrows, T, drp)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-4)
 
 
-def test_folded_eclipse_pallas_interpret_matches_jnp(fproblem):
-    tabk, fine, wn, mu, muw, wrows, T, drp, K = fproblem
-    ref = jax.vmap(
-        lambda w, t, d: fused._single_folded(tabk, wn, mu, muw, w, t, d)
-    )(wrows, T, drp)
-    old_force, old_interp = fused.FORCE_PALLAS, fused.INTERPRET
-    fused.FORCE_PALLAS, fused.INTERPRET = True, True
-    try:
-        got = jax.vmap(
-            lambda w, t, d: fused.fused_eclipse_folded(
-                tabk, wn, mu, muw, w, t, d)
-        )(wrows, T, drp)
-    finally:
-        fused.FORCE_PALLAS, fused.INTERPRET = old_force, old_interp
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=5e-5)
-
-
-def test_powers_kernels_match_jnp(fproblem):
-    """expsum powers mode (Horner attenuation): Pallas interpret ==
-    jnp path, for both the plain and folded eclipse kernels."""
+def test_powers_kernels_match_jnp(fproblem, interpret):
+    """expsum powers mode (Horner attenuation): the eclipse kernel in
+    the interpreter == the jnp path on the fine grid, and the folded
+    form == the fine-grid bin average."""
     from bart_tpu.rt.eclipse import expsum_weights
 
     tabk, fine, wn_out, _, _, wrows, T, drp, K = fproblem
@@ -336,23 +403,17 @@ def test_powers_kernels_match_jnp(fproblem):
     off = d * ((jnp.arange(K) + 0.5) / K - 0.5)
     wn_fine = (wn_out[:, None] + off[None, :]).reshape(-1)
 
-    for folded, tab, wn in ((False, fine, wn_fine), (True, tabk, wn_out)):
-        single = fused._single_folded if folded else fused._single
-        entry = fused.fused_eclipse_folded if folded else fused.fused_eclipse
-        ref = jax.vmap(
-            lambda w, t, d: single(tab, wn, mu, muw, w, t, d, powers=True)
-        )(wrows, T, drp)
-        old_force, old_interp = fused.FORCE_PALLAS, fused.INTERPRET
-        fused.FORCE_PALLAS, fused.INTERPRET = True, True
-        try:
-            got = jax.vmap(
-                lambda w, t, d: entry(tab, wn, mu, muw, w, t, d,
-                                      powers=True)
-            )(wrows, T, drp)
-        finally:
-            fused.FORCE_PALLAS, fused.INTERPRET = old_force, old_interp
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=5e-5)
+    ref = jax.vmap(lambda w, t, d: fused._single(
+        fine, wn_fine, mu, muw, w, t, d, powers=True))(wrows, T, drp)
+    got = jax.vmap(lambda w, t, d: fused.fused_eclipse(
+        fine, wn_fine, mu, muw, w, t, d, powers=True))(wrows, T, drp)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=5e-5)
+
+    folded = jax.vmap(lambda w, t, d: fused.fused_eclipse_folded(
+        tabk, wn_out, mu, muw, w, t, d, powers=True))(wrows, T, drp)
+    np.testing.assert_allclose(
+        np.asarray(folded), np.asarray(ref).reshape(-1, W, K).mean(-1),
+        rtol=2e-4)
 
 
 def test_folded_transit_jnp_matches_fine_average(fproblem, tproblem):
@@ -366,40 +427,17 @@ def test_folded_transit_jnp_matches_fine_average(fproblem, tproblem):
 
     def ref_one(w_c, r_c):
         G, wgt = slant_geometry(r_c)
-        s = fused._tsingle(fine, w_c, G, wgt)
+        s = fused.fused_transit(fine, w_c, G, wgt)
         return s.reshape(W, K).mean(axis=1)
 
     def fold_one(w_c, r_c):
         G, wgt = slant_geometry(r_c)
-        return fused._tsingle_folded(tabk, w_c, G, wgt)
+        return fused.fused_transit_folded(tabk, w_c, G, wgt)
 
     ref = jax.vmap(ref_one)(wrows, rad)
     got = jax.vmap(fold_one)(wrows, rad)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=1e-6)
-
-
-def test_folded_transit_pallas_interpret_matches_jnp(fproblem, tproblem):
-    from bart_tpu.rt.transit_geom import slant_geometry
-
-    tabk, fine, wn, mu, muw, wrows, T, drp, K = fproblem
-    rad = tproblem[2]
-
-    def batch(force):
-        old_force, old_interp = fused.FORCE_PALLAS, fused.INTERPRET
-        fused.FORCE_PALLAS, fused.INTERPRET = force, force
-        try:
-            def one(w_c, r_c):
-                G, wgt = slant_geometry(r_c)
-                return fused.fused_transit_folded(tabk, w_c, G, wgt)
-
-            return jax.vmap(one)(wrows, rad)
-        finally:
-            fused.FORCE_PALLAS, fused.INTERPRET = old_force, old_interp
-
-    ref, got = batch(False), batch(True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-4, atol=1e-30)
 
 
 def test_forward_model_folded_matches_fine_pipeline():
@@ -541,9 +579,8 @@ def test_forward_model_fused_transit_parity():
 def test_forward_model_fold_bf16_tables():
     """fold_bf16 stores the fine tables in bfloat16 (the production
     memory/upload knob) and changes band fluxes only at the level of
-    bf16 table rounding — which the TPU's DEFAULT-precision fills
-    apply to f32 tables anyway.  Bound measured on CPU where the f32
-    model is exact (TPU f32-vs-bf16-table difference is smaller)."""
+    bf16 table rounding (the table is widened to f32 per sub-sample,
+    so the contraction itself stays f32).  Bound measured on CPU."""
     from bart_tpu.io.kurucz import blackbody_star
     from bart_tpu.io.tep import PlanetSystem
     from bart_tpu.linelist.tli import synthetic_linelist
@@ -607,8 +644,7 @@ def test_fold_bf16_with_adaptive_split():
     """fold_bf16 + fold_adapt combine: fine tables (sigmak/frowsk) go
     bf16, smooth bin-mean tables (sigmas/frowss) STAY f32 (they feed
     the K=1 HIGHEST-precision path), and the forward model runs — the
-    combination the accuracy-mode WASP regression exercises on TPU
-    (fine-bin fraction 0.838 there)."""
+    combination of the accuracy-mode WASP config."""
     from bart_tpu.io.kurucz import blackbody_star
     from bart_tpu.io.tep import PlanetSystem
     from bart_tpu.linelist.tli import synthetic_linelist

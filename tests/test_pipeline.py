@@ -332,3 +332,35 @@ def test_accuracy_mode_cfg_parses():
     uncert = load_data_array(cfg.uncert)
     assert len(data) == 4 and len(uncert) == 4
     np.testing.assert_allclose(uncert, 0.025 * data, rtol=1e-4)
+
+
+def test_cli_retrieval_imports_no_extra_packages(tmp_path):
+    """The retrieval path (cli -> Pipeline.run with plots False) needs
+    only JAX (with what JAX's own modules import, e.g. Pallas), numpy
+    and scipy — not the plotting extra.  Run in a fresh interpreter,
+    tiny sizes."""
+    out = str(tmp_path / "out")
+    script = f"""
+import sys
+import jax, jax.numpy, numpy, scipy, scipy.special, scipy.optimize
+import jax.experimental.pallas.triton, jax.experimental.custom_partitioning
+before = {{m.split('.')[0] for m in sys.modules}}
+from bart_tpu.driver.cli import main
+rc = main(["-c", {DEMO_CFG!r}, "--loc_dir", {out!r}, "--n_layers", "12",
+           "--tempdelt", "650", "--wndelt", "50", "--numit", "400",
+           "--nchains", "4", "--burnin", "20", "--plots", "False",
+           "--quiet", "True"])
+assert rc == 0
+new = {{m.split('.')[0] for m in sys.modules}} - before
+extra = sorted(m for m in new if m not in sys.stdlib_module_names
+               and not m.startswith('_') and m != 'bart_tpu')
+print('EXTRA', extra)
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("EXTRA")]
+    assert line == ["EXTRA []"], (line, res.stdout[-2000:])
+    assert os.path.isfile(os.path.join(out, "output.npy"))

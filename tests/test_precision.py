@@ -1,9 +1,9 @@
-"""f32 (TPU-default) vs f64 retrieval fidelity (VERDICT r2 item 2).
+"""f32 vs f64 retrieval fidelity.
 
-The pipeline defaults to float32 on TPU (driver/pipeline.py) while the
+The pipeline defaults to float32 on the accelerator (driver/pipeline.py) while the
 reference is float64 throughout (SURVEY.md section 7 "Precision").
 Two complementary checks, calibrated by a measured seed-to-seed MC
-noise study (docs/PERFORMANCE.md "Precision" table):
+noise study (docs/LINE_SAMPLING.md, accuracy findings):
 
 1. DETERMINISTIC (the strong one): evaluate the f32 and f64
    log-likelihoods on the same posterior-typical sample set.  If
@@ -92,7 +92,7 @@ def test_f32_loglike_matches_f64_on_typical_set(problem):
     finite = np.isfinite(l64) & np.isfinite(l32)
     assert finite.mean() > 0.99          # bounds/validity agree
     d = np.abs(l32[finite] - l64[finite])
-    # measured: max 1.0e-4, mean 2e-5 (docs/PERFORMANCE.md) — bounds
+    # measured: max 1.0e-4, mean 2e-5 (docs/LINE_SAMPLING.md) — bounds
     # leave ~100x headroom while still pinning density-level fidelity
     assert d.max() < 0.02, (d.max(), d.mean())
     assert d.mean() < 0.002, d.mean()

@@ -1,6 +1,8 @@
 """Radiative-transfer tests: analytic goldens for Planck, tau, eclipse,
 transit geometry, band integration, and the full forward model."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -19,7 +21,11 @@ from bart_tpu.rt.planck import planck_wn
 from bart_tpu.rt.tau import tau_slant, tau_vertical
 from bart_tpu.rt.transit_geom import transit_depth
 
-REF = "/root/reference"
+# assumed demo system and filters in the repository
+# (examples/make_demo_inputs.py)
+DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "examples", "demo_inputs")
+DEMO_TEP = os.path.join(DEMO, "demo_system.tep")
 
 
 def test_planck_stefan_boltzmann():
@@ -116,7 +122,7 @@ def test_band_matrix_matches_reference_trapz():
     rng = np.random.default_rng(11)
     spectrum = rng.uniform(0.5, 2.0, len(specwn))
     star = rng.uniform(1e3, 2e3, len(specwn))
-    filters = [read_filter(f"{REF}/inputs/filters/demo/fdemo{i:02d}.dat")
+    filters = [read_filter(f"{DEMO}/fdemo{i:02d}.dat")
                for i in (1, 5, 10)]
 
     # transit mode (raw spectrum)
@@ -137,7 +143,7 @@ def test_band_matrix_matches_reference_trapz():
 
 def test_band_matrix_rejects_uncovered_filter():
     specwn = np.arange(3000.0, 3100.0)
-    fw, ft = read_filter(f"{REF}/inputs/filters/demo/fdemo01.dat")
+    fw, ft = read_filter(f"{DEMO}/fdemo01.dat")
     with pytest.raises(ValueError, match="does not cover"):
         build_band_matrix(specwn, [(fw, ft)])
 
@@ -157,7 +163,7 @@ def make_demo_forward(solution="eclipse", dtype=None, **cfg_kw):
     from bart_tpu.io.filters import read_filter as rf
     from bart_tpu.utils.grids import pressure_grid
 
-    system = PlanetSystem.from_tep(f"{REF}/inputs/tep/HD209458b.tep")
+    system = PlanetSystem.from_tep(DEMO_TEP)
     pressure = pressure_grid(40, 1e-5, 100.0)
     wn = np.arange(2500.0, 5001.0, 5.0)
     species = ["H2", "He", "CH4"]
@@ -173,7 +179,7 @@ def make_demo_forward(solution="eclipse", dtype=None, **cfg_kw):
         )
     grid = _DEMO_GRID_CACHE["grid"]
 
-    filters = [rf(f"{REF}/inputs/filters/demo/fdemo{i:02d}.dat")
+    filters = [rf(f"{DEMO}/fdemo{i:02d}.dat")
                for i in range(1, 11)]
     if solution == "eclipse":
         starfl, _ = blackbody_star(wn, system.t_star)
@@ -306,7 +312,7 @@ def test_forward_on_the_fly_matches_fine_grid():
     from bart_tpu.utils.grids import pressure_grid
     from bart_tpu import constants as c
 
-    system = PlanetSystem.from_tep(f"{REF}/inputs/tep/HD209458b.tep")
+    system = PlanetSystem.from_tep(DEMO_TEP)
     pressure = pressure_grid(20, 1e-5, 100.0)
     wn = np.arange(2500.0, 5001.0, 10.0)
     species = ["H2", "He", "CH4"]
@@ -319,7 +325,7 @@ def test_forward_on_the_fly_matches_fine_grid():
                          mol.diameter * 1e-8, spec)
     tiles = {"CH4": tile_lines(ll, wn, cutoff, tile_size=64)}
 
-    filters = [rf(f"{REF}/inputs/filters/demo/fdemo{i:02d}.dat")
+    filters = [rf(f"{DEMO}/fdemo{i:02d}.dat")
                for i in (2, 5, 8)]
     starfl, _ = blackbody_star(wn, system.t_star)
     bands = build_band_matrix(wn, filters, star_flux=starfl, rprs=system.rprs)
